@@ -1,0 +1,364 @@
+"""Smoke test of the PyTorch port on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py`` (no arguments, one
+card, no JAX).  Phases, each fatal on failure:
+
+1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and print the card,
+   its power limit, the torch version and the build time;
+2. hold every kernel against its plain PyTorch version on the card, exactly
+   (integer outputs, zero tolerance), at the main path's shapes, and time
+   both with CUDA events:
+   K1 + K2 (wavefront DP + traceback) at B=128 96x96 and B=32 320x320, K3
+   (greedy matching) at the main path's B=128 and B=32 with W=512 columns,
+   and at B=128 with W=256 and W=1024, lookahead 1, 2, 5, 8;
+3. drive the port's main path, ``lara_tpu_torch.app.run`` with default
+   parameters, on the bench's tRNA family (120 pairs of ~72 nt) and on a
+   ~300 nt family (28 pairs).  Every pair must equal the native C++
+   baseline under ``bench._full_depth_ok`` (columns, best_lower,
+   best_upper, iterations), the library bytes must equal the library built
+   from the native results, and the K1, K2 and K3 launch counts must have
+   risen during the run;
+4. profile 25 warm iterations of each family's chunk: the unprofiled wall
+   per iteration, and from ``torch.profiler`` the device busy share,
+   kernels per iteration and the K1/K2/K3 time.
+
+It then prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Without CUDA, or outside a checkout of the repository, it exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+KERNELS = {
+    "gotoh_dp": ("lara_tpu_torch/csrc/gotoh_dp.cu",
+                 "lara_tpu/ops/gotoh_pallas.py:253"),
+    "gotoh_tb": ("lara_tpu_torch/csrc/gotoh_dp.cu",
+                 "lara_tpu/ops/gotoh_pallas.py:366"),
+    "matching_rounds": ("lara_tpu_torch/csrc/matching.cu",
+                        "lara_tpu/solver/matching_pallas.py:250"),
+}
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` calls (CUDA events,
+    after one warm-up call)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _max_abs_err(got, want) -> int:
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def _dp_phase(b, la_max, lb_max, seed, dev, stats):
+    """K1 + K2 against the plain DP and traceback on one random batch."""
+    import torch
+
+    from lara_tpu.types import PSSM_INIT
+    from lara_tpu_torch.ops import gotoh, gotoh_cuda
+
+    go, ge = -49152, -16384
+    rng = np.random.default_rng(seed)
+    pssm = rng.integers(-9000, 9000, (b, la_max, lb_max)).astype(np.int32)
+    pssm[rng.random(pssm.shape) < 0.3] = PSSM_INIT
+    seq = rng.integers(-5000, 5000, (b, la_max, lb_max)).astype(np.int32)
+    la = rng.integers(1, la_max + 1, b).astype(np.int32)
+    lb = rng.integers(1, lb_max + 1, b).astype(np.int32)
+    la[:3], lb[:3] = (1, la_max, la_max), (lb_max, 1, lb_max)
+    pssm_t, seq_t, la_t, lb_t = (torch.from_numpy(x).to(dev)
+                                 for x in (pssm, seq, la, lb))
+
+    dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge)
+    tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, go, ge,
+                                   seq_t)
+    tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, go, ge, seq_t)
+    torch.cuda.synchronize()
+    # direction codes are defined on the valid cells (i <= la, d-i <= lb)
+    d_idx = torch.arange(la_max + lb_max + 1, device=dev)[None, :, None]
+    i_idx = torch.arange(la_max + 1, device=dev)[None, None, :]
+    valid = (i_idx <= la_t[:, None, None]) & (d_idx - i_idx >= 0) \
+        & (d_idx - i_idx <= lb_t[:, None, None])
+    err_dp = max(_max_abs_err(finals_k, finals_p),
+                 _max_abs_err(torch.where(valid, dirs_k, 0),
+                              torch.where(valid, dirs_p, 0)))
+    err_tb = max(_max_abs_err(g, w) for g, w in zip(tb_k, tb_p))
+    if err_dp or err_tb:
+        raise AssertionError(f"K1/K2 disagree with the plain version at "
+                             f"B={b} {la_max}x{lb_max}: {err_dp}, {err_tb}")
+
+    times = {
+        "gotoh_dp": (
+            _time_ms(lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge),
+                     50),
+            _time_ms(lambda: gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge), 2)),
+        "gotoh_tb": (
+            _time_ms(lambda: gotoh_cuda.dp_traceback(
+                dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50),
+            _time_ms(lambda: gotoh.dp_traceback(
+                dirs_p, finals_p, la_t, lb_t, go, ge, seq_t), 2)),
+    }
+    shape = f"B={b} {la_max}x{lb_max}"
+    for name, err in (("gotoh_dp", err_dp), ("gotoh_tb", err_tb)):
+        ms, plain_ms = times[name]
+        stats[name].append((shape, err, ms, plain_ms))
+        print(f"  {name:16s} {shape:24s} max_abs_err {err}  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+
+
+def _matching_case(b, width, slots, seed):
+    """Queue-ordered candidate columns with exact weight ties among dead
+    columns (the fuzz of tests/test_matching_pallas.py at bench widths)."""
+    rng = np.random.default_rng(seed)
+    n_edges = slots * slots
+    lq = np.zeros((b, width), np.int32)
+    mq = np.zeros((b, width), np.int32)
+    wq = np.zeros((b, width), np.int32)
+    live = np.zeros((b, width), bool)
+    line = np.full((b, slots), n_edges, np.int32)
+    for k in range(b):
+        n_lines = int(rng.integers(2, slots))
+        lines = np.sort(rng.choice(n_edges, n_lines, replace=False))
+        line[k, :n_lines] = lines
+        inter = set()
+        for _ in range(int(rng.integers(0, width // 2))):
+            x, y = rng.choice(n_lines, 2, replace=False)
+            l, m = sorted((int(lines[x]), int(lines[y])))
+            inter.add((l, m, int(rng.integers(0, 6)) * 2))
+        order = sorted(inter, key=lambda t: (-t[2], t[0], t[1]))
+        cols = np.sort(rng.choice(width, len(order), replace=False))
+        for c, (l, m, w) in zip(cols, order):
+            lq[k, c], mq[k, c], wq[k, c], live[k, c] = l, m, w, True
+    return lq, mq, wq, live, line
+
+
+def _matching_phase(b, width, slots, lookahead, seed, dev, stats):
+    import torch
+
+    from lara_tpu_torch.solver import matching_cuda, matching_device
+
+    args = [torch.from_numpy(x).to(dev)
+            for x in _matching_case(b, width, slots, seed)]
+    got = matching_cuda.rounds_loop_cuda(*args, lookahead)
+    want = matching_device.rounds_loop(*args, lookahead)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(got.score, want.score),
+              _max_abs_err(got.used_slot, want.used_slot))
+    if err:
+        raise AssertionError(f"K3 disagrees with the plain version at B={b} "
+                             f"W={width} lh={lookahead}: {err}")
+    ms = _time_ms(lambda: matching_cuda.rounds_loop_cuda(*args, lookahead), 20)
+    plain_ms = _time_ms(lambda: matching_device.rounds_loop(*args, lookahead),
+                        2)
+    shape = f"B={b} W={width} S={slots} lh={lookahead}"
+    stats["matching_rounds"].append((shape, err, ms, plain_ms))
+    print(f"  {'matching_rounds':16s} {shape:24s} max_abs_err {err}  kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+
+
+def _main_path(label, records, dev, tmp):
+    """One run of the port's CLI path on a family, checked pair by pair
+    against the native C++ baseline."""
+    import torch
+
+    from bench import _full_depth_ok
+    from lara_tpu.app import enumerate_pairs, load_input
+    from lara_tpu.io.writers import OutputLibrary, write_ebpseq
+    from lara_tpu.native import baseline as native_baseline
+    from lara_tpu.params import Parameters
+    from lara_tpu.utils import timing
+    from lara_tpu_torch import app
+
+    path = os.path.join(tmp, f"{label}.ebpseq")
+    with open(path, "w") as handle:
+        write_ebpseq(records, handle)
+    params = Parameters(in_file=path, out_file=os.path.join(tmp, f"{label}.lib"))
+    start = time.perf_counter()
+    run = app.run(params, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    phases = timing.snapshot()
+    with open(params.out_file) as handle:
+        library = handle.read()
+
+    store = load_input(params)
+    pairs = enumerate_pairs(store)
+    by_pair = {r.seq_indices: r for r in run.results}
+    native_lib = OutputLibrary(store, "lib")
+    native_baseline._load()  # g++ build outside the timed loop
+    native_start = time.perf_counter()
+    for (ia, ib) in pairs:
+        nat = native_baseline.solve_pair(store[ia], store[ib], params, (ia, ib))
+        dev_res = by_pair[nat.seq_indices]
+        if not _full_depth_ok(dev_res, nat.columns, nat.best_lower,
+                              nat.best_upper, nat.iterations):
+            raise AssertionError(f"{label}: pair {nat.seq_indices} differs "
+                                 "from the native baseline")
+        native_lib.add_alignment(nat.seq_indices, nat.columns, nat.score)
+    native_s = time.perf_counter() - native_start
+    if len(run.results) != len(pairs) or native_lib.to_string() != library:
+        raise AssertionError(f"{label}: library differs from the native one")
+    iters = [r.iterations for r in run.results]
+    print(f"  {label}: {len(pairs)} pairs of {max(len(r.sequence) for r in store)}"
+          f" nt, all equal to the native baseline; wall {wall:.3f} s, "
+          f"{len(pairs) / wall:.3f} alignments/s, mean iterations "
+          f"{np.mean(iters):.1f} (max {max(iters)})")
+    print("    phases: " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    print(f"    native C++ baseline, one host thread, same pairs: {native_s:.3f}"
+          f" s, {len(pairs) / native_s:.3f} alignments/s")
+
+
+def _profile_phase(label, records, dev, n_iter=25):
+    """Where one chunk's solve spends its time: the unprofiled wall of
+    ``n_iter`` warm iterations, and from ``torch.profiler`` over the same
+    iterations the device time, kernels per iteration and K1/K2/K3 time.
+    The busy share divides device time by the UNPROFILED wall (the profiler
+    itself slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lara_tpu.app import enumerate_pairs
+    from lara_tpu.params import Parameters
+    from lara_tpu.solver.device_driver import _pad_dim
+    from lara_tpu_torch.solver import device_driver, device_solver
+
+    params = Parameters(in_file="<bench>")
+    pad = _pad_dim(max(len(r.sequence) for r in records))
+    models, _ = device_driver._filter_and_build(
+        records, enumerate_pairs(records), params, pad, pad, dev)
+    batch, scan_steps = device_driver._pack_models(models, pad, pad, dev)
+    b, d = batch.dual_l.shape
+
+    def solve():
+        carry = device_solver._init_carry(
+            b, d, pad, np.float32(params.step_size_factor),
+            int(params.num_iterations), dev)
+        device_solver.solve_batch_chunk(
+            batch, carry, int(params.gap_open_int),
+            int(params.gap_extend_int), pad, pad, n_iter,
+            int(params.max_nondecr_iterations), int(params.matching),
+            scan_steps)
+        torch.cuda.synchronize()
+
+    solve()
+    start = time.perf_counter()
+    solve()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    ours = {name: sum(e.self_device_time_total for e in device
+                      if f"{name}_kernel" in e.key) / n_iter
+            for name in ("dp_forward", "dp_traceback", "matching_rounds")}
+    print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations: "
+          f"{wall_ms / n_iter:.3f} ms/iteration unprofiled, device busy "
+          f"{busy_ms / n_iter:.3f} ms/iteration ({busy_ms / wall_ms:.1%}), "
+          f"{sum(e.count for e in device) / n_iter:.1f} kernels/iteration, "
+          "K1/K2/K3 " + " / ".join(f"{us:.1f}" for us in ours.values())
+          + " us/iteration")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from bench import make_family, make_long_family
+    from lara_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    start = time.perf_counter()
+    _build.library()
+    print(f"kernel library: {_build.LIBRARY} (nvcc {_build.build_seconds():.1f}"
+          f" s, load {time.perf_counter() - start:.1f} s)")
+
+    print("kernels vs plain versions on the card:")
+    stats = {name: [] for name in KERNELS}
+    _dp_phase(128, 96, 96, 1, dev, stats)
+    _dp_phase(32, 320, 320, 2, dev, stats)
+    # K3 first at the main path's shapes (both chunks have D=1024 dual
+    # entries, so W=512 queue columns; S=LA line slots), then the fuzz
+    # widths at every lookahead
+    _matching_phase(128, 512, 96, 5, 20, dev, stats)
+    _matching_phase(32, 512, 320, 5, 21, dev, stats)
+    for width in (256, 1024):
+        for lookahead in (5, 1, 2, 8):
+            _matching_phase(128, width, 96, lookahead, 10 + lookahead, dev,
+                            stats)
+
+    print("main path: lara_tpu_torch.app.run, default parameters:")
+    families = [
+        ("trna-72nt", make_family(n=16)),
+        ("rrna-300nt", make_long_family(n=8, length=300, seed=31,
+                                        mutations=12)),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.reset_launches()
+        for label, records in families:
+            _main_path(label, records, dev, tmp)
+        launches = dict(_build.launches)
+    print(f"  kernel launches on the main path: {launches}")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the main path never launched {missing}")
+    print("where one chunk's solve spends its time:")
+    for label, records in families:
+        _profile_phase(label, records, dev)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        _shape, _err, ms, plain_ms = stats[name][0]  # the main path's shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(e for _, e, _, _ in stats[name]),
+            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6)})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

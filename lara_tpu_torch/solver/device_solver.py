@@ -1,0 +1,388 @@
+"""The batched subgradient solver in PyTorch.
+
+Counterpart of :mod:`lara_tpu.solver.device_solver`: one batch of pairwise
+Lagrangian problems iterates PSSM assembly, the wavefront DP and traceback
+(K1 + K2), subgradient extraction, greedy matching (K3), bound bookkeeping
+and the dual update, with converged lanes frozen under masks
+(``/root/reference/src/subgradient_solver.hpp:206-331``).
+
+The dual table is edge-major (sorted by (l, m), one contiguous run per
+alignment edge, partner ids ascending within a run).  Where the JAX body
+works around the TPU's memory system, this port takes the GPU form:
+
+* PSSM placement is one scatter of max(run top, 0) at the run starts (the
+  JAX ``e_cap == 0`` semantics); the sort plus int8-limb matmul placement
+  and the scatter-max branch are TPU forms and are not ported,
+* line membership of an entry is a gather, ``partner[l // LB] == l % LB``,
+  in place of the [B, D, S] compare-reduce (equal everywhere: slot a's line
+  edge is a * LB + partner[a], and partner < LB),
+* ``pick[rev]`` is a gather in place of the key sort,
+* the consistent-branch slot marks are two scatters in place of the
+  [B, D, S] compare.
+
+The run-top tie-break (``_run_top``) and the float32 dual update keep the
+reference's operation order, in eager torch.
+
+On the card one iteration holds no host synchronisation: K2 and K3 replace
+the two data-dependent loops, a dispatch runs all of its iterations (every
+carry write is masked by the lane's activity, so iterations after all lanes
+finish change nothing) and :func:`solve_batch` reads ``lane_active.any()``
+once per dispatch.  On the CPU, where that read is free, a dispatch also
+stops as soon as no lane is active.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import torch
+
+from lara_tpu.types import INFINITY, PSSM_INIT
+from lara_tpu_torch.ops import gotoh_cuda
+from lara_tpu_torch.solver.matching_device import greedy_matching_queue
+
+I32 = torch.int32
+F32 = torch.float32
+NEG_INF = -int(INFINITY)
+#: iterations per dispatch: the any-lane-active flag is read between them
+DISPATCH = 125
+
+
+class BatchModel(NamedTuple):
+    """Static per-batch problem data (padded), on one device.
+
+    Invariant: every row of ``rev`` is an involution of [0, D) (identity on
+    padded entries)."""
+
+    seq_score: torch.Tensor  # [B, NE] int32 (flat la*lb grid padded to LA*LB)
+    active: torch.Tensor     # [B, NE] bool
+    dual_l: torch.Tensor     # [B, D] int32
+    dual_m: torch.Tensor     # [B, D] int32
+    sscore: torch.Tensor     # [B, D] int32
+    rev: torch.Tensor        # [B, D] int32
+    dvalid: torch.Tensor     # [B, D] bool
+    qrank: torch.Tensor      # [B, D] int32
+    la: torch.Tensor         # [B] int32
+    lb: torch.Tensor         # [B] int32
+
+
+class BatchResult(NamedTuple):
+    best_upper: torch.Tensor     # [B] int32
+    best_lower: torch.Tensor     # [B] int32
+    best_partner: torch.Tensor   # [B, LA_MAX] int32: partner[a] = b or -1
+    best_nlines: torch.Tensor    # [B] int32
+    best_matched: torch.Tensor   # [B, LA_MAX] bool (per position slot)
+    dual_at_queue: torch.Tensor  # [B, D] int32
+    iterations: torch.Tensor     # [B] int32
+
+
+class _Carry(NamedTuple):
+    dual: torch.Tensor
+    dual_at_queue: torch.Tensor
+    step_factor: torch.Tensor
+    nondecr: torch.Tensor
+    remaining: torch.Tensor
+    lane_active: torch.Tensor
+    best_lower: torch.Tensor
+    best_upper: torch.Tensor
+    best_score: torch.Tensor
+    best_partner: torch.Tensor
+    best_nlines: torch.Tensor
+    best_matched: torch.Tensor
+    iterations: torch.Tensor
+
+
+def _init_carry(b: int, d: int, la_max: int, step_factor0,
+                num_iterations: int, device: torch.device) -> _Carry:
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return _Carry(
+        dual=full((b, d), 0, I32),
+        dual_at_queue=full((b, d), 0, I32),
+        step_factor=full((b,), float(step_factor0), F32),
+        nondecr=full((b,), 0, I32),
+        remaining=full((b,), num_iterations, I32),
+        lane_active=full((b,), True, torch.bool),
+        best_lower=full((b,), NEG_INF, I32),
+        best_upper=full((b,), -NEG_INF, I32),
+        best_score=full((b,), NEG_INF, I32),
+        best_partner=full((b, la_max), -1, I32),
+        best_nlines=full((b,), 0, I32),
+        best_matched=full((b, la_max), False, torch.bool),
+        iterations=full((b,), 0, I32),
+    )
+
+
+def _result_of(final: _Carry) -> BatchResult:
+    return BatchResult(
+        best_upper=final.best_upper,
+        best_lower=final.best_lower,
+        best_partner=final.best_partner,
+        best_nlines=final.best_nlines,
+        best_matched=final.best_matched,
+        dual_at_queue=final.dual_at_queue,
+        iterations=final.iterations,
+    )
+
+
+def _shift_right(x: torch.Tensor, s: int, fill) -> torch.Tensor:
+    return torch.cat([torch.full_like(x[:, :s], fill), x[:, :-s]], dim=1)
+
+
+def _shift_left(x: torch.Tensor, s: int, fill) -> torch.Tensor:
+    return torch.cat([x[:, s:], torch.full_like(x[:, :s], fill)], dim=1)
+
+
+def _same_segment_masks(seg: torch.Tensor, steps: int):
+    """For each doubling shift 2^k, whether the neighbour 2^k to the
+    left/right lies in the same edge run (loop-invariant)."""
+    masks = []
+    s = 1
+    for _ in range(steps):
+        masks.append((_shift_right(seg, s, -1) == seg,
+                      _shift_left(seg, s, -1) == seg))
+        s *= 2
+    return masks
+
+
+def _run_top(p, idx, same_masks, p_fill, idx_fill):
+    """Segmented doubling scan with the queue-top monoid: max profit, ties
+    to the smallest entry index (== smallest partner id within a run), the
+    reference's per-edge priority-queue top (``lagrange.hpp:121,305-309``).
+    Returns (run max p, index of the top entry) at every position."""
+
+    def combine(p1, i1, p2, i2):
+        take1 = (p1 > p2) | ((p1 == p2) & (i1 <= i2))
+        return torch.where(take1, p1, p2), torch.where(take1, i1, i2)
+
+    fp, fi = p, idx
+    bp_, bi = p, idx
+    s = 1
+    for (same_r, same_l) in same_masks:
+        fp, fi = combine(
+            fp, fi,
+            torch.where(same_r, _shift_right(fp, s, p_fill), p_fill),
+            torch.where(same_r, _shift_right(fi, s, idx_fill), idx_fill))
+        bp_, bi = combine(
+            bp_, bi,
+            torch.where(same_l, _shift_left(bp_, s, p_fill), p_fill),
+            torch.where(same_l, _shift_left(bi, s, idx_fill), idx_fill))
+        s *= 2
+    return combine(fp, fi, bp_, bi)
+
+
+def solve_batch(model: BatchModel, go, ge, step_factor0, la_max: int,
+                lb_max: int, num_iterations: int, max_nondecr: int,
+                lookahead: int, scan_steps: int = 0) -> BatchResult:
+    """Solve in dispatches of ``DISPATCH`` iterations; the carry stays on
+    the device between dispatches, and the any-lane-active flag is read
+    once per dispatch."""
+    b = model.seq_score.shape[0]
+    d = model.dual_l.shape[1]
+    carry = _init_carry(b, d, la_max, step_factor0, num_iterations,
+                        model.seq_score.device)
+    total = 0
+    while total < num_iterations:
+        steps = min(DISPATCH, num_iterations - total)
+        carry = solve_batch_chunk(model, carry, go, ge, la_max, lb_max,
+                                  steps, max_nondecr, lookahead, scan_steps)
+        total += steps
+        if not bool(carry.lane_active.any()):
+            break
+    return _result_of(carry)
+
+
+class _Static(NamedTuple):
+    """Loop-invariant data of one dispatch."""
+
+    same_masks: List[Tuple[torch.Tensor, torch.Tensor]]
+    iota_d: torch.Tensor     # [B, D]
+    start_dst: torch.Tensor  # [B, D] run-start cell, NE elsewhere
+    lq: torch.Tensor         # [B, CW] queue-ordered l < m candidates
+    mq: torch.Tensor
+    wq: torch.Tensor
+    nc_base: torch.Tensor    # [B] candidate count
+    iota_cw: torch.Tensor    # [1, CW]
+    slot_base: torch.Tensor  # [1, S]
+
+
+def _prepare(model: BatchModel, la_max: int, lb_max: int,
+             scan_steps: int) -> _Static:
+    b, ne = model.seq_score.shape
+    d = model.dual_l.shape[1]
+    dev = model.dual_l.device
+    full_depth = max(1, (d - 1).bit_length())
+    steps = full_depth if scan_steps <= 0 else min(scan_steps, full_depth)
+    iota_d = torch.arange(d, device=dev, dtype=I32).expand(b, d)
+    prev_l = torch.cat([torch.full_like(model.dual_l[:, :1], -1),
+                        model.dual_l[:, :-1]], dim=1)
+    is_start = model.dvalid & (model.dual_l != prev_l)
+    start_dst = torch.where(is_start, model.dual_l, ne).long()
+    # matching queue, statically ordered once per dispatch (the queue key
+    # never involves duals, matching.hpp:149-151): order by qrank, then
+    # compact the l < m half (each undirected interaction enters the queue
+    # once); keys are unique in both sorts
+    order = torch.argsort(model.qrank, dim=1)
+    lq_s = model.dual_l.gather(1, order)
+    mq_s = model.dual_m.gather(1, order)
+    wq_s = (2 * model.sscore).gather(1, order)
+    cand = (model.dvalid & (model.dual_l < model.dual_m)).gather(1, order)
+    ckey = torch.where(cand, iota_d, d + iota_d)
+    corder = torch.argsort(ckey, dim=1)
+    cw = max(1, d // 2)
+    corder = corder[:, :cw]
+    return _Static(
+        same_masks=_same_segment_masks(model.dual_l, steps),
+        iota_d=iota_d,
+        start_dst=start_dst,
+        lq=lq_s.gather(1, corder).contiguous(),
+        mq=mq_s.gather(1, corder).contiguous(),
+        wq=wq_s.gather(1, corder).contiguous(),
+        nc_base=cand.sum(1, dtype=I32),
+        iota_cw=torch.arange(cw, device=dev, dtype=I32)[None, :],
+        slot_base=(torch.arange(la_max, device=dev, dtype=I32)
+                   * lb_max)[None, :],
+    )
+
+
+def _in_lines(edge: torch.Tensor, partner: torch.Tensor,
+              lb_max: int) -> torch.Tensor:
+    """Whether each flat edge id (a * LB + b) is a line of the current
+    alignment: ``partner[a] == b``."""
+    return partner.gather(1, (edge // lb_max).long()) == edge % lb_max
+
+
+def _iteration(model: BatchModel, st: _Static, c: _Carry, go: int, ge: int,
+               la_max: int, lb_max: int, max_nondecr: int,
+               lookahead: int) -> _Carry:
+    b, ne = model.seq_score.shape
+    act = c.lane_active
+    dual_at_queue = torch.where(act[:, None], c.dual, c.dual_at_queue)
+
+    # ---- per-edge queue top: capped segmented doubling scan ----
+    profits = model.sscore + c.dual
+    masked = torch.where(model.dvalid, profits, NEG_INF)
+    d = model.dual_l.shape[1]
+    run_p, run_idx = _run_top(masked, st.iota_d, st.same_masks, NEG_INF, d)
+    is_top = model.dvalid & (profits == run_p)
+
+    # ---- PSSM grid: max(run max, 0) of each edge at its cell (run starts
+    # carry the full-run aggregate); uncovered cells get 0 ----
+    placed = torch.zeros((b, ne + 1), dtype=I32, device=profits.device)
+    placed.scatter_(1, st.start_dst, torch.clamp(run_p, min=0))
+    pssm = torch.where(model.active, model.seq_score + placed[:, :ne],
+                       int(PSSM_INIT)).reshape(b, la_max, lb_max)
+
+    # ---- relaxed problem: wavefront DP + traceback (K1 + K2) ----
+    tb = gotoh_cuda.align_pssm_batch(pssm, model.la, model.lb, go, ge,
+                                     la_max, lb_max, model.seq_score)
+    upper = tb.upper
+    partner = tb.partner                                  # [B, S]
+    slot_valid = partner >= 0
+    slot_edge = torch.where(slot_valid, st.slot_base + partner, ne)
+
+    # ---- line membership per entry (gathers) ----
+    l_in = _in_lines(model.dual_l, partner, lb_max)
+    m_in = _in_lines(model.dual_m, partner, lb_max)
+    l_in_q = _in_lines(st.lq, partner, lb_max)
+    m_in_q = _in_lines(st.mq, partner, lb_max)
+
+    # ---- subgradients (lagrange.hpp:343-374): cycle(i) = pick(rev(i)) ----
+    pick = l_in & (run_p >= 0) & is_top
+    pick_rev = pick.gather(1, model.rev.long())
+    sg_pos = pick & ~pick_rev
+    sg = sg_pos.to(I32) - (pick_rev & ~pick).to(I32)
+    count = 2 * sg_pos.sum(1, dtype=I32)
+    any_sg = count > 0
+
+    # ---- consistent branch (lagrange.hpp:397-409): entry-level, at the
+    # unique top entry of each run ----
+    is_top_exact = model.dvalid & (st.iota_d == run_idx)
+    tis_entry = (profits < 0) | ((profits == 0)
+                                 & (model.dual_l < model.dual_m))
+    contrib = is_top_exact & l_in & ~tis_entry
+    consistent_sum = torch.where(contrib, model.sscore, 0).sum(1, dtype=I32)
+    # a line slot is matched in the consistent case iff its own top
+    # contributes, or some contributing line chose it as partner
+    marks = torch.zeros((b, la_max + 1), dtype=I32, device=profits.device)
+    marks.scatter_(1, torch.where(contrib, model.dual_l // lb_max,
+                                  la_max).long(), 1)
+    marks.scatter_(1, torch.where(contrib & m_in, model.dual_m // lb_max,
+                                  la_max).long(), 1)
+    matched_cons_slot = slot_valid & (marks[:, :la_max] != 0)
+
+    # ---- matching branch (lagrange.hpp:380-395): K3 ----
+    cand_q = (st.iota_cw < st.nc_base[:, None]) & l_in_q & m_in_q \
+        & any_sg[:, None] & act[:, None]
+    match_res = greedy_matching_queue(st.lq, st.mq, st.wq, cand_q,
+                                      slot_edge, lookahead)
+    struct_part = torch.where(any_sg, match_res.score, consistent_sum)
+
+    lower = tb.seq_part + struct_part + tb.gap_score
+
+    # ---- best primal tracking (lagrange.hpp:416-421) ----
+    better = act & (lower > c.best_score)
+    slot_matched = torch.where(any_sg[:, None], match_res.used_slot,
+                               matched_cons_slot) & slot_valid
+    best_score = torch.where(better, lower, c.best_score)
+    best_partner = torch.where(better[:, None], partner, c.best_partner)
+    best_nlines = torch.where(better, tb.n_lines, c.best_nlines)
+    best_matched = torch.where(better[:, None], slot_matched, c.best_matched)
+
+    # ---- bound bookkeeping (subgradient_solver.hpp:247-263) ----
+    improved_u = act & (upper < c.best_upper)
+    improved_l = act & (lower > c.best_lower)
+    best_upper = torch.where(improved_u, upper, c.best_upper)
+    best_lower = torch.where(improved_l, lower, c.best_lower)
+    nondecr = torch.where(improved_u | improved_l, 0, c.nondecr)
+    halve = act & (nondecr >= max_nondecr)
+    step_factor = torch.where(halve, c.step_factor / 2.0, c.step_factor)
+    nondecr = torch.where(act, torch.where(halve, 0, nondecr + 1),
+                          c.nondecr).to(I32)
+
+    # ---- dual update (subgradient_solver.hpp:265-271): float32, in the
+    # reference's operation order, truncated toward zero ----
+    step = step_factor * (best_upper - best_lower).to(F32) \
+        / torch.clamp(count, min=1).to(F32)
+    upd = act[:, None] & (sg != 0)
+    new_dual = (c.dual.to(F32) - step[:, None] * sg.to(F32)).to(I32)
+    dual = torch.where(upd, new_dual, c.dual)
+
+    remaining = torch.where(act, c.remaining - 1, c.remaining)
+    done_now = act & ((best_upper == best_lower) | (remaining == 0))
+
+    return _Carry(
+        dual=dual,
+        dual_at_queue=dual_at_queue,
+        step_factor=step_factor,
+        nondecr=nondecr,
+        remaining=remaining,
+        lane_active=act & ~done_now,
+        best_lower=best_lower,
+        best_upper=best_upper,
+        best_score=best_score,
+        best_partner=best_partner,
+        best_nlines=best_nlines,
+        best_matched=best_matched,
+        iterations=c.iterations + act.to(I32),
+    )
+
+
+def solve_batch_chunk(model: BatchModel, carry: _Carry, go, ge, la_max: int,
+                      lb_max: int, max_steps: int, max_nondecr: int,
+                      lookahead: int, scan_steps: int = 0) -> _Carry:
+    """Up to ``max_steps`` iterations; resumable.
+
+    ``scan_steps``: doubling passes of the per-edge run scan; 2**scan_steps
+    must cover the longest per-edge run (0 = full depth, always safe).
+    """
+    go, ge = int(go), int(ge)
+    st = _prepare(model, la_max, lb_max, scan_steps)
+    sync_free = carry.lane_active.is_cuda
+    for _ in range(max_steps):
+        if not sync_free and not bool(carry.lane_active.any()):
+            break
+        carry = _iteration(model, st, carry, go, ge, la_max, lb_max,
+                           max_nondecr, lookahead)
+    return carry
