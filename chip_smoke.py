@@ -3,23 +3,29 @@
 Run from the repository root: ``python3 chip_smoke.py`` (no arguments, one
 card, no JAX).  Phases, each fatal on failure:
 
-1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and print the card,
-   its power limit, the torch version and the build time;
+1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and the native host
+   libraries (g++) before anything is timed, and print the card, its power
+   limit, the torch version and the build times;
 2. hold every kernel against its plain PyTorch version on the card, exactly
    (integer outputs, zero tolerance), at the main path's shapes, and time
    both with CUDA events:
-   K1 + K2 (wavefront DP + traceback) at B=128 96x96 and B=32 320x320, K3
-   (greedy matching) at the main path's B=128 and B=32 with W=512 columns,
-   and at B=128 with W=256 and W=1024, lookahead 1, 2, 5, 8;
-3. drive the port's main path, ``lara_tpu_torch.app.run`` with default
-   parameters, on the bench's tRNA family (120 pairs of ~72 nt) and on a
-   ~300 nt family (28 pairs).  Every pair must equal the native C++
-   baseline under ``bench._full_depth_ok`` (columns, best_lower,
-   best_upper, iterations), the library bytes must equal the library built
-   from the native results, and the K1, K2 and K3 launch counts must have
-   risen during the run;
-4. profile 25 warm iterations of each family's chunk: the unprofiled wall
-   per iteration, and from ``torch.profiler`` the device busy share,
+   K1 + K2 (wavefront DP + traceback), K1-grid + K2-grid (one launch per
+   block of diagonals) and K-res (both in one CTA, codes in shared memory)
+   at B=128 96x96 and B=32 320x320, K3 (greedy matching) at the main path's
+   B=128 and B=32 with W=512 columns, and at B=128 with W=256 and W=1024,
+   lookahead 1, 2, 5, 8;
+3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
+   tRNA family (120 pairs of ~72 nt) and a ~300 nt family (28 pairs): the
+   fused main path with default parameters on both, the hybrid backend at
+   ``-m 0`` on tRNA, the hybrid at ``-m 12`` on ~300 nt under
+   ``LARA_DP_RESIDENT=1``, and the fused path under ``LARA_DP_GRID=1`` on
+   tRNA.  Every pair must equal the native C++ baseline under
+   ``bench._full_depth_ok`` (columns, best_lower, best_upper, iterations),
+   the library bytes must equal the library built from the native results,
+   and the launch counts, set to 0 before each run, must show exactly the
+   kernels the run is meant to launch;
+4. profile 25 warm iterations of each family's fused chunk: the unprofiled
+   wall per iteration, and from ``torch.profiler`` the device busy share,
    kernels per iteration and the K1/K2/K3 time.
 
 It then prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
@@ -46,7 +52,15 @@ KERNELS = {
                  "lara_tpu/ops/gotoh_pallas.py:366"),
     "matching_rounds": ("lara_tpu_torch/csrc/matching.cu",
                         "lara_tpu/solver/matching_pallas.py:250"),
+    "gotoh_grid_dp": ("lara_tpu_torch/csrc/gotoh_grid.cu",
+                      "lara_tpu/ops/gotoh_pallas.py:41"),
+    "gotoh_grid_tb": ("lara_tpu_torch/csrc/gotoh_grid.cu",
+                      "lara_tpu/ops/gotoh_pallas.py:145"),
+    # one kernel for both resident TPU kernels (K1-res :468, K2-res :550)
+    "gotoh_resident": ("lara_tpu_torch/csrc/gotoh_resident.cu",
+                       "lara_tpu/ops/gotoh_pallas.py:468"),
 }
+ALSO_REPLACES = {"gotoh_resident": "lara_tpu/ops/gotoh_pallas.py:550"}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -70,15 +84,19 @@ def _max_abs_err(got, want) -> int:
 
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
 def _dp_phase(b, la_max, lb_max, seed, dev, stats):
-    """K1 + K2 against the plain DP and traceback on one random batch."""
+    """K1 + K2, K1-grid + K2-grid and K-res against the plain DP and
+    traceback on one random batch.  The variants compute the plain
+    versions' functions, so their plain times are K1's and K2's."""
     import torch
 
     from lara_tpu.types import PSSM_INIT
-    from lara_tpu_torch.ops import gotoh, gotoh_cuda
+    from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
 
     go, ge = -49152, -16384
     rng = np.random.default_rng(seed)
@@ -90,42 +108,76 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats):
     la[:3], lb[:3] = (1, la_max, la_max), (lb_max, 1, lb_max)
     pssm_t, seq_t, la_t, lb_t = (torch.from_numpy(x).to(dev)
                                  for x in (pssm, seq, la, lb))
+    dchunk = gotoh_plan.fused_dchunk(la_max, lb_max)
+    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT))
+    if gotoh_plan.resident_bytes(la_max, lb_max) > gotoh_cuda.smem_optin(dev):
+        raise AssertionError(f"{la_max}x{lb_max} does not fit K-res")
 
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
     dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge)
     tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, go, ge,
                                    seq_t)
     tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, go, ge, seq_t)
+    dirs_g, finals_g = gotoh_cuda.dp_forward_grid(skewed, la_t, lb_t, go, ge,
+                                                  dchunk)
+    tb_g = gotoh_cuda.dp_traceback_grid(dirs_g, finals_g, la_t, lb_t, go, ge,
+                                        seq_t, dchunk)
+    tb_r = gotoh_cuda.align_resident(pssm_t, la_t, lb_t, go, ge, seq_t)
     torch.cuda.synchronize()
     # direction codes are defined on the valid cells (i <= la, d-i <= lb)
     d_idx = torch.arange(la_max + lb_max + 1, device=dev)[None, :, None]
     i_idx = torch.arange(la_max + 1, device=dev)[None, None, :]
     valid = (i_idx <= la_t[:, None, None]) & (d_idx - i_idx >= 0) \
         & (d_idx - i_idx <= lb_t[:, None, None])
-    err_dp = max(_max_abs_err(finals_k, finals_p),
-                 _max_abs_err(torch.where(valid, dirs_k, 0),
-                              torch.where(valid, dirs_p, 0)))
-    err_tb = max(_max_abs_err(g, w) for g, w in zip(tb_k, tb_p))
-    if err_dp or err_tb:
-        raise AssertionError(f"K1/K2 disagree with the plain version at "
-                             f"B={b} {la_max}x{lb_max}: {err_dp}, {err_tb}")
 
+    def dp_err(dirs, finals):
+        return max(_max_abs_err(finals, finals_p),
+                   _max_abs_err(torch.where(valid, dirs, 0),
+                                torch.where(valid, dirs_p, 0)))
+
+    def tb_err(tb):
+        return max(_max_abs_err(g, w) for g, w in zip(tb, tb_p))
+
+    errs = {
+        "gotoh_dp": dp_err(dirs_k, finals_k),
+        "gotoh_tb": tb_err(tb_k),
+        "gotoh_grid_dp": dp_err(
+            dirs_g[:la_max + lb_max + 1].permute(1, 0, 2), finals_g),
+        "gotoh_grid_tb": tb_err(tb_g),
+        "gotoh_resident": tb_err(tb_r),
+    }
+    if any(errs.values()):
+        raise AssertionError(f"a DP kernel disagrees with the plain version "
+                             f"at B={b} {la_max}x{lb_max}: {errs}")
+
+    plain_dp = _time_ms(lambda: gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge),
+                        2)
+    plain_tb = _time_ms(lambda: gotoh.dp_traceback(
+        dirs_p, finals_p, la_t, lb_t, go, ge, seq_t), 2)
     times = {
         "gotoh_dp": (
             _time_ms(lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge),
-                     50),
-            _time_ms(lambda: gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge), 2)),
+                     50), plain_dp),
         "gotoh_tb": (
             _time_ms(lambda: gotoh_cuda.dp_traceback(
-                dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50),
-            _time_ms(lambda: gotoh.dp_traceback(
-                dirs_p, finals_p, la_t, lb_t, go, ge, seq_t), 2)),
+                dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50), plain_tb),
+        "gotoh_grid_dp": (
+            _time_ms(lambda: gotoh_cuda.dp_forward_grid(
+                skewed, la_t, lb_t, go, ge, dchunk), 20), plain_dp),
+        "gotoh_grid_tb": (
+            _time_ms(lambda: gotoh_cuda.dp_traceback_grid(
+                dirs_g, finals_g, la_t, lb_t, go, ge, seq_t, dchunk), 20),
+            plain_tb),
+        "gotoh_resident": (
+            _time_ms(lambda: gotoh_cuda.align_resident(
+                pssm_t, la_t, lb_t, go, ge, seq_t), 50), plain_dp + plain_tb),
     }
     shape = f"B={b} {la_max}x{lb_max}"
-    for name, err in (("gotoh_dp", err_dp), ("gotoh_tb", err_tb)):
+    for name, err in errs.items():
         ms, plain_ms = times[name]
-        stats[name].append((shape, err, ms, plain_ms))
-        print(f"  {name:16s} {shape:24s} max_abs_err {err}  kernel "
+        label = f"{shape} dchunk={dchunk}" if "grid" in name else shape
+        stats[name].append((label, err, ms, plain_ms))
+        print(f"  {name:16s} {label:24s} max_abs_err {err}  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
 
 
@@ -179,9 +231,11 @@ def _matching_phase(b, width, slots, lookahead, seed, dev, stats):
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
 
 
-def _main_path(label, records, dev, tmp):
+def _main_path(label, records, dev, tmp, expect, matching=5, env=None):
     """One run of the port's CLI path on a family, checked pair by pair
-    against the native C++ baseline."""
+    against the native C++ baseline.  The launch counts are set to 0 just
+    before the run and read just after it; the kernels that launched must
+    be exactly ``expect``.  Returns the counts."""
     import torch
 
     from bench import _full_depth_ok
@@ -190,45 +244,70 @@ def _main_path(label, records, dev, tmp):
     from lara_tpu.native import baseline as native_baseline
     from lara_tpu.params import Parameters
     from lara_tpu.utils import timing
-    from lara_tpu_torch import app
+    from lara_tpu_torch import _build, app
+    from lara_tpu_torch.solver import hybrid_driver
 
+    env = env or {}
+    name = f"{label} -m {matching}" + "".join(f" {k}={v}"
+                                              for k, v in env.items())
     path = os.path.join(tmp, f"{label}.ebpseq")
     with open(path, "w") as handle:
         write_ebpseq(records, handle)
-    params = Parameters(in_file=path, out_file=os.path.join(tmp, f"{label}.lib"))
-    start = time.perf_counter()
-    run = app.run(params, dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
+    params = Parameters(in_file=path, out_file=os.path.join(tmp, f"{label}.lib"),
+                        matching=matching)
+    os.environ.update(env)
+    try:
+        _build.reset_launches()
+        hybrid_driver.turns = 0
+        start = time.perf_counter()
+        run = app.run(params, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = dict(_build.launches)
+    finally:
+        for key in env:
+            del os.environ[key]
     phases = timing.snapshot()
     with open(params.out_file) as handle:
         library = handle.read()
+    launched = {k for k, n in launches.items() if n}
+    if launched != set(expect):
+        raise AssertionError(f"{name}: launched {sorted(launched)}, expected "
+                             f"{sorted(expect)} ({launches})")
 
     store = load_input(params)
     pairs = enumerate_pairs(store)
     by_pair = {r.seq_indices: r for r in run.results}
     native_lib = OutputLibrary(store, "lib")
-    native_baseline._load()  # g++ build outside the timed loop
     native_start = time.perf_counter()
     for (ia, ib) in pairs:
         nat = native_baseline.solve_pair(store[ia], store[ib], params, (ia, ib))
         dev_res = by_pair[nat.seq_indices]
         if not _full_depth_ok(dev_res, nat.columns, nat.best_lower,
                               nat.best_upper, nat.iterations):
-            raise AssertionError(f"{label}: pair {nat.seq_indices} differs "
+            raise AssertionError(f"{name}: pair {nat.seq_indices} differs "
                                  "from the native baseline")
         native_lib.add_alignment(nat.seq_indices, nat.columns, nat.score)
     native_s = time.perf_counter() - native_start
     if len(run.results) != len(pairs) or native_lib.to_string() != library:
-        raise AssertionError(f"{label}: library differs from the native one")
+        raise AssertionError(f"{name}: library differs from the native one")
     iters = [r.iterations for r in run.results]
-    print(f"  {label}: {len(pairs)} pairs of {max(len(r.sequence) for r in store)}"
-          f" nt, all equal to the native baseline; wall {wall:.3f} s, "
-          f"{len(pairs) / wall:.3f} alignments/s, mean iterations "
-          f"{np.mean(iters):.1f} (max {max(iters)})")
+    print(f"  {name}: {len(pairs)} pairs of "
+          f"{max(len(r.sequence) for r in store)} nt, all equal to the native "
+          f"baseline; wall {wall:.3f} s, {len(pairs) / wall:.3f} "
+          f"alignments/s, mean iterations {np.mean(iters):.1f} (max "
+          f"{max(iters)})")
     print("    phases: " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    if hybrid_driver.turns:
+        turns = hybrid_driver.turns
+        print(f"    hybrid: {turns} batched iterations, per iteration "
+              f"{1e3 * phases['hybrid device step'] / turns:.3f} ms device "
+              f"step (uploads, DP, download) + "
+              f"{1e3 * phases['hybrid host step'] / turns:.3f} ms host step")
     print(f"    native C++ baseline, one host thread, same pairs: {native_s:.3f}"
           f" s, {len(pairs) / native_s:.3f} alignments/s")
+    print(f"    launches: {launches}")
+    return launches
 
 
 def _profile_phase(label, records, dev, n_iter=25):
@@ -308,6 +387,18 @@ def main() -> int:
     _build.library()
     print(f"kernel library: {_build.LIBRARY} (nvcc {_build.build_seconds():.1f}"
           f" s, load {time.perf_counter() - start:.1f} s)")
+    # the native host libraries build with g++ at first use; build them
+    # here, as the kernels above, so that no timed run pays for a build
+    from lara_tpu.native import baseline as native_baseline, lagrange
+    from lara_tpu.solver import interactions
+
+    start = time.perf_counter()
+    native_baseline._load()
+    lagrange._load()
+    if interactions._native_build() is None:
+        raise AssertionError("the native model build did not load")
+    print(f"native host libraries (baseline, lagrange_host, model_build): "
+          f"{time.perf_counter() - start:.1f} s")
 
     print("kernels vs plain versions on the card:")
     stats = {name: [] for name in KERNELS}
@@ -323,21 +414,33 @@ def main() -> int:
             _matching_phase(128, width, 96, lookahead, 10 + lookahead, dev,
                             stats)
 
-    print("main path: lara_tpu_torch.app.run, default parameters:")
     families = [
         ("trna-72nt", make_family(n=16)),
         ("rrna-300nt", make_long_family(n=8, length=300, seed=31,
                                         mutations=12)),
     ]
+    trna, rrna = families
+    fused = ("gotoh_dp", "gotoh_tb", "matching_rounds")
+    launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as tmp:
-        _build.reset_launches()
+        print("main path: lara_tpu_torch.app.run, default parameters:")
         for label, records in families:
-            _main_path(label, records, dev, tmp)
-        launches = dict(_build.launches)
-    print(f"  kernel launches on the main path: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+            run = _main_path(label, records, dev, tmp, fused)
+            for name in fused:
+                launches[name] += run[name]
+        print("hybrid backend (host matching):")
+        _main_path(*trna, dev, tmp, ("gotoh_dp", "gotoh_tb"), matching=0)
+        run = _main_path(*rrna, dev, tmp, ("gotoh_resident",), matching=12,
+                         env={"LARA_DP_RESIDENT": "1"})
+        launches["gotoh_resident"] = run["gotoh_resident"]
+        print("fused path, grid-stepped DP kernels:")
+        run = _main_path(*trna, dev, tmp,
+                         ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds"),
+                         env={"LARA_DP_GRID": "1"})
+        launches["gotoh_grid_dp"] = run["gotoh_grid_dp"]
+        launches["gotoh_grid_tb"] = run["gotoh_grid_tb"]
+    print(f"  kernel launches, each from the run meant to launch it: "
+          f"{launches}")
     print("where one chunk's solve spends its time:")
     for label, records in families:
         _profile_phase(label, records, dev)
@@ -347,11 +450,14 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         _shape, _err, ms, plain_ms = stats[name][0]  # the main path's shape
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(e for _, e, _, _ in stats[name]),
-            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6)})
+            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6)}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Every ``csrc/*.cu`` compiles with ``nvcc`` (sm_90a) into one shared library
 with a plain C interface under ``_build/``, at first use and again whenever
-a source is newer than the library (the scheme of
+a source (``*.cu`` or ``*.cuh``) is newer than the library (the scheme of
 :func:`lara_tpu.native.shared_library`).  ``ctypes`` binds it: pointers and
 the CUDA stream go over as ``c_void_p``, every entry point returns its
 ``cudaGetLastError()``, and :func:`check` raises on anything but 0.  A
@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`
-launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0}
+launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
+            "gotoh_grid_dp": 0, "gotoh_grid_tb": 0, "gotoh_resident": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -94,9 +95,10 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+        headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
         if not os.path.exists(LIBRARY) or any(
                 os.path.getmtime(src) > os.path.getmtime(LIBRARY)
-                for src in sources):
+                for src in sources + headers):
             _build(sources)
         lib = ctypes.CDLL(LIBRARY)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -109,6 +111,18 @@ def library() -> ctypes.CDLL:
         lib.lara_matching_rounds.restype = i32
         lib.lara_matching_rounds.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+        lib.lara_gotoh_grid_dp.restype = i32
+        lib.lara_gotoh_grid_dp.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+        lib.lara_gotoh_grid_tb.restype = i32
+        lib.lara_gotoh_grid_tb.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr]
+        lib.lara_gotoh_resident.restype = i32
+        lib.lara_gotoh_resident.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+        lib.lara_smem_optin.restype = i32
+        lib.lara_smem_optin.argtypes = [i32, ctypes.POINTER(i32)]
         lib.lara_cuda_error_string.restype = ctypes.c_char_p
         lib.lara_cuda_error_string.argtypes = [i32]
         _lib = lib

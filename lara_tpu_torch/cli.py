@@ -6,6 +6,7 @@ from __future__ import annotations
 import sys
 
 from lara_tpu.io.records import LaraInputError
+from lara_tpu.native import NativeBuildError
 from lara_tpu.params import parse_args
 
 
@@ -18,7 +19,7 @@ def main(argv=None) -> int:
         from lara_tpu_torch.app import run
 
         run(params)
-    except LaraInputError as exc:
+    except (LaraInputError, NativeBuildError) as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1
     return 0

@@ -1,10 +1,11 @@
 // K1 and K2 of the port: the forward affine-Gotoh wavefront and its
 // traceback, hand-written for Hopper (sm_90a).
 //
-// K1 replaces lara_tpu/ops/gotoh_pallas.py::_make_stream_kernel (its layout
-// variants _make_kernel and _make_resident_kernel compute the same function);
-// K2 replaces gotoh_pallas.py::_make_tb_stream_kernel.  The plain versions
-// are lara_tpu_torch/ops/gotoh.py::dp_forward and ::dp_traceback.
+// K1 replaces lara_tpu/ops/gotoh_pallas.py::_make_stream_kernel; K2 replaces
+// gotoh_pallas.py::_make_tb_stream_kernel.  (The TPU's grid-stepped and
+// resident layouts of the same functions have their own kernels in
+// gotoh_grid.cu and gotoh_resident.cu.)  The plain versions are
+// lara_tpu_torch/ops/gotoh.py::dp_forward and ::dp_traceback.
 //
 // What bounds them on this card.  K1 is a chain of la+lb+1 dependent
 // anti-diagonal steps per pair, each O(la) integer max/compare work, reading

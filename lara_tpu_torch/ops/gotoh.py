@@ -7,12 +7,15 @@ arithmetic.  Cells outside a lane's (la, lb) rectangle are computed exactly
 as the JAX sweep computes them (their sums may wrap in int32); no valid cell
 depends on them.
 
-This module is the plain version of the two CUDA kernels in
+This module holds the plain versions of the CUDA kernels in
 :mod:`lara_tpu_torch.ops.gotoh_cuda`: :func:`dp_forward` of K1 (forward
-wavefront) and :func:`dp_traceback` of K2 (traceback).  Both take and return
-the kernels' layouts: ``dirs`` is ``[B, D, W]`` int8 with cell (i, j) at
-``[b, i + j, i]`` (D = la_max + lb_max + 1, W = la_max + 1) and ``finals``
-is ``[3, B]`` int32 (M, H, V at (la, lb)).
+wavefront), :func:`dp_traceback` of K2 (traceback), both together of K-res,
+and :func:`gotoh_scan` (over pre-skewed scores) of K1-grid.  ``dp_forward``
+and ``dp_traceback`` take and return K1's and K2's layouts: ``dirs`` is
+``[B, D, W]`` int8 with cell (i, j) at ``[b, i + j, i]`` (D = la_max +
+lb_max + 1, W = la_max + 1) and ``finals`` is ``[3, B]`` int32 (M, H, V at
+(la, lb)).  :func:`compact_lines` turns the dense partner map into the
+ordered line list, as plain torch on every device.
 
 The edge filter (:func:`edge_filter_skewed_words`) runs once per chunk and
 stays plain torch on every device.
@@ -47,6 +50,8 @@ class Traceback(NamedTuple):
     n_lines: torch.Tensor    # [B]
     gap_score: torch.Tensor  # [B] affine gap score (evaluateLines)
     seq_part: torch.Tensor   # [B] seq-score sum over the matched cells
+    lines: torch.Tensor      # [B, LCAP, 2] matched (a, b) ascending, -1 pad;
+                             # [B, 0, 2] unless the caller asked for lines
 
 
 def skew_scores(scores: torch.Tensor, fill: int) -> torch.Tensor:
@@ -212,18 +217,27 @@ def dp_traceback(dirs: torch.Tensor, finals: torch.Tensor, la: torch.Tensor,
     partner = partner[:, :la_max].to(I32)
     cnt, gap, seq = cnt.to(I32), gap.to(I32), seq.to(I32)
     return Traceback(upper=upper, partner=partner, n_lines=cnt,
-                     gap_score=gap, seq_part=seq)
+                     gap_score=gap, seq_part=seq, lines=no_lines(b, dev))
 
 
-def align_pssm_batch(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
-                     go: int, ge: int, la_max: int, lb_max: int,
-                     seq_score: torch.Tensor) -> Traceback:
-    """Batched per-iteration ``globalAlignment``
-    (``subgradient_solver.hpp:223-225``) plus line and gap extraction."""
-    assert tuple(pssm.shape[1:]) == (la_max, lb_max)
-    dirs, finals = dp_forward(pssm, la, lb, go, ge)
-    return dp_traceback(dirs, finals, la, lb, go, ge,
-                        seq_score.reshape(pssm.shape))
+def no_lines(b: int, device) -> torch.Tensor:
+    """The ``lines`` of a traceback that was not asked for them."""
+    return torch.zeros((b, 0, 2), dtype=I32, device=device)
+
+
+def compact_lines(partner: torch.Tensor, n_lines: torch.Tensor,
+                  lcap: int) -> torch.Tensor:
+    """Dense partner map ``[B, LA]`` -> ordered line list ``[B, lcap, 2]``
+    of (a, partner[a]) by ascending a, -1 beyond ``n_lines``
+    (``lara_tpu/ops/gotoh_pallas.py:1027-1038``): a stable sort of the
+    unmatched flags puts the matched positions first, in order."""
+    order = torch.argsort((partner < 0).to(torch.int8), dim=1,
+                          stable=True)[:, :lcap]
+    lines_b = partner.gather(1, order)
+    keep = torch.arange(lcap, device=partner.device)[None, :] \
+        < n_lines[:, None]
+    return torch.stack([torch.where(keep, order.to(I32), -1),
+                        torch.where(keep, lines_b, -1)], dim=-1)
 
 
 def suffix_scan(sub_shifted: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,

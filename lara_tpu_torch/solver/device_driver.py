@@ -9,11 +9,15 @@ Counterpart of the serial part of :mod:`lara_tpu.solver.device_driver`:
   :class:`~lara_tpu_torch.solver.device_solver.BatchModel`, the solve, one
   packed result download, and the JAX package's host postprocessing.
 
-Not ported yet (ROADMAP): the hybrid backend (``-m 0``, ``-m`` > 8,
-``LARA_SOLVER=hybrid``), lane refill (``LARA_REFILL``), the single-bucket
-split, the threaded cross-chunk pipeline and multi-device batches.  The
-first three raise :class:`NotImplementedError`; nothing is handed to the
-scalar mirror behind the caller's back.
+Exact matching (``-m 0``), lookahead beyond 8 and ``LARA_SOLVER=hybrid``
+go to the hybrid backend (:mod:`lara_tpu_torch.solver.hybrid_driver`),
+whose host bookkeeping is the native ``lagrange_host`` library; a failed
+build of it raises :class:`lara_tpu.native.NativeBuildError`.  Nothing is
+handed to the scalar mirror behind the caller's back.
+
+Not ported yet (ROADMAP): lane refill (``LARA_REFILL``, which raises
+:class:`NotImplementedError`), the single-bucket split, the threaded
+cross-chunk pipeline and multi-device batches.
 """
 
 from __future__ import annotations
@@ -41,37 +45,43 @@ from lara_tpu_torch.solver import device_solver
 CELL_BUDGET = 128 * 1024 * 1024
 
 
-def _check_supported(params: Parameters) -> None:
-    if params.matching == 0 or params.matching > 8:
-        raise NotImplementedError(
-            f"-m {params.matching}: exact matching and lookahead > 8 run on "
-            "the hybrid backend, not yet ported to PyTorch (ROADMAP queue 1, "
-            "item 11)")
-    if os.environ.get("LARA_SOLVER", "") == "hybrid":
-        raise NotImplementedError(
-            "LARA_SOLVER=hybrid: the hybrid backend is not yet ported to "
-            "PyTorch (ROADMAP queue 1, item 11)")
-    if os.environ.get("LARA_REFILL") and not os.environ.get("LARA_NO_REFILL"):
-        raise NotImplementedError(
-            "LARA_REFILL: lane refill is not yet ported to PyTorch (ROADMAP "
-            "queue 1, item 12)")
-
-
-def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
-              device: torch.device) -> Iterator[PairResult]:
-    """Solve every pair on ``device``; returns an iterator of one
-    :class:`PairResult` per pair, chunk by chunk.  Unported modes raise
-    here, before any work, not at the first ``next``."""
-    _check_supported(params)
+def buckets_of(store, pairs: Sequence[Tuple[int, int]]
+               ) -> List[Tuple[Tuple[int, int], List[Tuple[int, int]]]]:
+    """Pairs grouped by padded (LA, LB) class, largest class first."""
     buckets: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
     for (ia, ib) in pairs:
         key = (_pad_dim(len(store[ia].sequence)),
                _pad_dim(len(store[ib].sequence)))
         buckets.setdefault(key, []).append((ia, ib))
+    return sorted(buckets.items(), reverse=True)
+
+
+def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
+              device: torch.device) -> Iterator[PairResult]:
+    """Solve every pair on ``device``; returns an iterator of one
+    :class:`PairResult` per pair, chunk by chunk (bucket by bucket on the
+    hybrid backend).  An unported mode or a failed native build raises
+    here, before any work, not at the first ``next``."""
+    host_matching = params.matching == 0 or params.matching > 8
+    if host_matching or os.environ.get("LARA_SOLVER", "") == "hybrid":
+        from lara_tpu.native import lagrange
+        from lara_tpu_torch.solver import hybrid_driver
+
+        lagrange._load()  # raises NativeBuildError without the toolchain
+        if host_matching:
+            log(1, "   * host matching mode: hybrid backend (device DP + "
+                   "native exact/deep matching)")
+        else:
+            log(2, "   * hybrid backend: device DP + native host "
+                   "bookkeeping")
+        return hybrid_driver.solve_all(store, pairs, params, device)
+    if os.environ.get("LARA_REFILL") and not os.environ.get("LARA_NO_REFILL"):
+        raise NotImplementedError(
+            "LARA_REFILL: lane refill is not yet ported to PyTorch (ROADMAP "
+            "queue 1, lane refill)")
     max_batch_cap = int(os.environ.get("LARA_MAX_BATCH", DEFAULT_MAX_BATCH))
     chunks = []
-    for (la_max, lb_max), bucket_pairs in sorted(buckets.items(),
-                                                 reverse=True):
+    for (la_max, lb_max), bucket_pairs in buckets_of(store, pairs):
         max_batch = max(1, min(max_batch_cap,
                                CELL_BUDGET // (la_max * lb_max)))
         for start in range(0, len(bucket_pairs), max_batch):

@@ -38,7 +38,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from lara_tpu.types import INFINITY, PSSM_INIT
-from lara_tpu_torch.ops import gotoh_cuda
+from lara_tpu_torch.ops import gotoh_cuda, gotoh_plan
 from lara_tpu_torch.solver.matching_device import greedy_matching_queue
 
 I32 = torch.int32
@@ -205,6 +205,7 @@ class _Static(NamedTuple):
     nc_base: torch.Tensor    # [B] candidate count
     iota_cw: torch.Tensor    # [1, CW]
     slot_base: torch.Tensor  # [1, S]
+    plan: gotoh_plan.Plan    # the DP kernels (LARA_DP_GRID/RESIDENT)
 
 
 def _prepare(model: BatchModel, la_max: int, lb_max: int,
@@ -243,6 +244,8 @@ def _prepare(model: BatchModel, la_max: int, lb_max: int,
         iota_cw=torch.arange(cw, device=dev, dtype=I32)[None, :],
         slot_base=(torch.arange(la_max, device=dev, dtype=I32)
                    * lb_max)[None, :],
+        plan=gotoh_cuda.plan_for(la_max, lb_max, dev,
+                                 gotoh_plan.fused_dchunk(la_max, lb_max)),
     )
 
 
@@ -274,9 +277,11 @@ def _iteration(model: BatchModel, st: _Static, c: _Carry, go: int, ge: int,
     pssm = torch.where(model.active, model.seq_score + placed[:, :ne],
                        int(PSSM_INIT)).reshape(b, la_max, lb_max)
 
-    # ---- relaxed problem: wavefront DP + traceback (K1 + K2) ----
+    # ---- relaxed problem: wavefront DP + traceback (K1 + K2 by default,
+    # else the plan's variant) ----
     tb = gotoh_cuda.align_pssm_batch(pssm, model.la, model.lb, go, ge,
-                                     la_max, lb_max, model.seq_score)
+                                     la_max, lb_max, model.seq_score,
+                                     plan=st.plan)
     upper = tb.upper
     partner = tb.partner                                  # [B, S]
     slot_valid = partner >= 0

@@ -1,8 +1,9 @@
 """The PyTorch port's CUDA kernels vs. their plain PyTorch versions, on a card.
 
-K1 + K2 (``lara_tpu_torch.ops.gotoh_cuda``) and K3
-(``lara_tpu_torch.solver.matching_cuda``) against the plain versions on the
-same CUDA tensors, with zero tolerance (every output is an integer).  This
+K1 + K2, K1-grid + K2-grid and K-res (``lara_tpu_torch.ops.gotoh_cuda``)
+and K3 (``lara_tpu_torch.solver.matching_cuda``) against the plain versions
+on the same CUDA tensors, with zero tolerance (every output is an
+integer).  This
 file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,7 +18,7 @@ import torch
 
 from lara_tpu.types import PSSM_INIT
 from lara_tpu_torch import _build
-from lara_tpu_torch.ops import gotoh, gotoh_cuda
+from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
 from lara_tpu_torch.solver import matching_cuda, matching_device
 
 pytestmark = pytest.mark.cuda
@@ -39,10 +40,11 @@ def _int_equal(got, want, name):
 
 # (batch, la_max, lb_max, seed): tiny, ragged, the tRNA bucket, wider than
 # one CTA (1100 offsets > 1024 threads) and beyond 48 KB of shared memory
-@pytest.mark.parametrize("case", [(4, 12, 10, 3), (9, 33, 47, 5),
-                                  (16, 96, 96, 7), (2, 1100, 40, 9),
-                                  (1, 1400, 16, 13)])
-def test_dp_kernels_match_plain(case, cuda):
+DP_CASES = [(4, 12, 10, 3), (9, 33, 47, 5), (16, 96, 96, 7), (2, 1100, 40, 9),
+            (1, 1400, 16, 13)]
+
+
+def _dp_problem(case, dev):
     b, la_max, lb_max, seed = case
     rng = np.random.default_rng(seed)
     pssm = rng.integers(-9000, 9000, (b, la_max, lb_max)).astype(np.int32)
@@ -53,8 +55,22 @@ def test_dp_kernels_match_plain(case, cuda):
     la[0], lb[0] = la_max, lb_max
     if b > 1:
         la[1], lb[-1] = 1, 1
-    pssm_t, seq_t, la_t, lb_t = (torch.from_numpy(x).to(cuda)
-                                 for x in (pssm, seq, la, lb))
+    return tuple(torch.from_numpy(x).to(dev) for x in (pssm, seq, la, lb))
+
+
+def _valid_cells(la_t, lb_t, la_max, lb_max, dev):
+    """[B, D, W] mask of the cells (i <= la, 0 <= d - i <= lb) on which the
+    direction codes are defined."""
+    d_idx = torch.arange(la_max + lb_max + 1, device=dev)[None, :, None]
+    i_idx = torch.arange(la_max + 1, device=dev)[None, None, :]
+    return (i_idx <= la_t[:, None, None]) & (d_idx >= i_idx) \
+        & (d_idx - i_idx <= lb_t[:, None, None])
+
+
+@pytest.mark.parametrize("case", DP_CASES)
+def test_dp_kernels_match_plain(case, cuda):
+    b, la_max, lb_max, _seed = case
+    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
 
     before = dict(_build.launches)
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE)
@@ -66,14 +82,131 @@ def test_dp_kernels_match_plain(case, cuda):
     torch.cuda.synchronize()
 
     _int_equal(finals_k, finals_p, "finals")
-    d_idx = torch.arange(la_max + lb_max + 1, device=cuda)[None, :, None]
-    i_idx = torch.arange(la_max + 1, device=cuda)[None, None, :]
-    valid = (i_idx <= la_t[:, None, None]) & (d_idx >= i_idx) \
-        & (d_idx - i_idx <= lb_t[:, None, None])
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda)
     _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
                "dirs")
     for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
         _int_equal(got, want, field)
+
+
+@pytest.mark.parametrize("dchunk", [8, 32])
+@pytest.mark.parametrize("case", DP_CASES)
+def test_grid_kernels_match_plain(case, dchunk, cuda):
+    """K1-grid (through ``gotoh_scan``) and K2-grid against the plain scan
+    and traceback; one launch of each per block of ``dchunk`` diagonals."""
+    b, la_max, lb_max, _seed = case
+    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT))
+    blocks = -(-(la_max + lb_max + 1) // dchunk)
+
+    before = dict(_build.launches)
+    res_k = gotoh_cuda.gotoh_scan(skewed, la_t, lb_t, GO, GE, dchunk)
+    finals_k = torch.stack([res_k.final_m, res_k.final_h, res_k.final_v])
+    tb_k = gotoh_cuda.dp_traceback_grid(res_k.aux, finals_k, la_t, lb_t, GO,
+                                        GE, seq_t, dchunk)
+    assert _build.launches["gotoh_grid_dp"] == \
+        before["gotoh_grid_dp"] + blocks
+    assert _build.launches["gotoh_grid_tb"] == \
+        before["gotoh_grid_tb"] + blocks
+    res_p = gotoh.gotoh_scan(skewed, la_t, lb_t, GO, GE, la_max)
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
+    torch.cuda.synchronize()
+
+    for got, want, name in zip(res_k[:3], res_p[:3], ("m", "h", "v")):
+        _int_equal(got, want, f"final_{name}")
+    assert res_k.aux.shape == (blocks * dchunk, b, la_max + 1)
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda).permute(1, 0, 2)
+    dirs_k = res_k.aux[:la_max + lb_max + 1]
+    _int_equal(torch.where(valid, dirs_k, 0),
+               torch.where(valid, res_p.aux.to(torch.int8), 0), "dirs")
+    for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
+        _int_equal(got, want, field)
+
+
+@pytest.mark.parametrize("case", DP_CASES)
+def test_resident_plan_and_kernel_match_plain(case, cuda, monkeypatch):
+    """Under LARA_DP_RESIDENT=1 the plan takes K-res where the pair fits
+    the card's opt-in shared memory and K1 + K2 where it does not (the
+    1100 x 40 and 1400 x 16 cases); either way the result, lines included,
+    equals the plain version's."""
+    b, la_max, lb_max, _seed = case
+    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    monkeypatch.setenv("LARA_DP_RESIDENT", "1")
+    fits = gotoh_plan.resident_bytes(la_max, lb_max) \
+        <= gotoh_cuda.smem_optin(cuda)
+    assert fits == (la_max < 1000)
+    plan = gotoh_cuda.plan_for(la_max, lb_max, cuda)
+    assert plan.variant == (gotoh_plan.RESIDENT if fits
+                            else gotoh_plan.STREAM)
+
+    before = dict(_build.launches)
+    tb_k = gotoh_cuda.align_pssm_batch(pssm_t, la_t, lb_t, GO, GE, la_max,
+                                       lb_max, seq_t, emit_lines=True)
+    moved = {name: _build.launches[name] - before[name]
+             for name in before}
+    want_moved = {"gotoh_resident": 1} if fits else {"gotoh_dp": 1,
+                                                     "gotoh_tb": 1}
+    assert {k: v for k, v in moved.items() if v} == want_moved
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
+    tb_p = tb_p._replace(lines=gotoh.compact_lines(
+        tb_p.partner, tb_p.n_lines, min(la_max, lb_max)))
+    torch.cuda.synchronize()
+    for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
+        _int_equal(got, want, field)
+    if fits:
+        direct = gotoh_cuda.align_resident(pssm_t, la_t, lb_t, GO, GE, seq_t)
+        for field, got, want in zip(gotoh.Traceback._fields[:5], direct,
+                                    tb_p):
+            _int_equal(got, want, field)
+
+
+@pytest.mark.parametrize("matching", [5, 0])
+@pytest.mark.parametrize("switch,kernels", [
+    (None, {"gotoh_dp", "gotoh_tb"}),
+    ("LARA_DP_GRID", {"gotoh_grid_dp", "gotoh_grid_tb"}),
+    ("LARA_DP_RESIDENT", {"gotoh_resident"}),
+])
+def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
+                                 monkeypatch, tmp_path):
+    """The fused path (-m 5) and the hybrid (-m 0) under each DP variant
+    give on the card what they give on the CPU, and launch the variant's
+    kernels (K3 on the fused path only).  The three records' structures
+    conflict, so the pairs iterate."""
+    from lara_tpu.app import enumerate_pairs
+    from lara_tpu.io.records import InputStorage
+    from lara_tpu.params import Parameters
+    from lara_tpu_torch.solver import device_driver
+
+    for key in ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_SOLVER"):
+        monkeypatch.delenv(key, raising=False)
+    if switch:
+        monkeypatch.setenv(switch, "1")
+    path = tmp_path / "conflict.dbn"
+    path.write_text(
+        ">x\nGGGAAAGGGAAACCCAAACCC\n(((...(((...)))...)))\n"
+        ">y\nGGGAAAGGGAAACCCAAACCC\n(((...)))...(((...)))\n"
+        ">z\nGGGAAAGGGAAACCCAAACC\n((....((....))....))\n")
+    records = InputStorage(in_file=str(path))
+    pairs = enumerate_pairs(records)
+    params = Parameters(in_file=str(path), num_iterations=60,
+                        matching=matching)
+
+    def solve(dev):
+        return sorted((r.seq_indices, r.columns, r.score, r.best_upper,
+                       r.best_lower, r.iterations)
+                      for r in device_driver.solve_all(records, pairs,
+                                                       params, dev))
+
+    _build.reset_launches()
+    on_card = solve(cuda)
+    launched = {k for k, n in _build.launches.items() if n}
+    if matching:
+        kernels = kernels | {"matching_rounds"}
+    assert launched == kernels
+    assert max(r[-1] for r in on_card) > 1
+    assert on_card == solve(torch.device("cpu"))
 
 
 def _matching_case(b, width, slots, seed):

@@ -4,9 +4,10 @@ The port's driver and CLI must write the same library bytes as the JAX
 device backend and the scalar mirror: on the ``write_family`` families of
 ``tests/test_device_solver.py`` in binary, ``-l`` linear and ``-b auto``
 modes, and on the golden configs of ``tests/test_golden_configs.py``
-(frozen mirror output that the JAX device backend is locked to).  The port
-must not load JAX, must not fall back to the CPU when CUDA is missing, and
-must refuse the modes it does not port yet.
+(frozen mirror output that the JAX device backend is locked to).  The
+host-matching modes must reach the hybrid backend.  The port must not load
+JAX, must not fall back to the CPU when CUDA is missing, and must refuse
+the modes it does not port yet.
 """
 
 import os
@@ -53,15 +54,20 @@ def test_family_matches_jax_and_mirror(tmp_path, mode, kw):
     assert port == run_backend(path, "device", **kw)
 
 
-def test_conflicting_structures_match_mirror(tmp_path):
+def write_conflicting(tmp_path):
     path = tmp_path / "conflict.dbn"
     path.write_text(
         ">x\nGGGAAAGGGAAACCCAAACCC\n(((...(((...)))...)))\n"
         ">y\nGGGAAAGGGAAACCCAAACCC\n(((...)))...(((...)))\n"
         ">z\nGGGAAAGGGAAACCCAAACC\n((....((....))....))\n"
     )
-    port = run_port(str(path), num_iterations=80)
-    assert port == run_backend(str(path), "reference", num_iterations=80)
+    return str(path)
+
+
+def test_conflicting_structures_match_mirror(tmp_path):
+    path = write_conflicting(tmp_path)
+    port = run_port(path, num_iterations=80)
+    assert port == run_backend(path, "reference", num_iterations=80)
 
 
 def test_chunked_batches_match_one_batch(tmp_path, monkeypatch):
@@ -112,16 +118,20 @@ def test_golden_configs(in_name, golden, extra, tmp_path, monkeypatch):
 
 
 def test_cli_runs_without_jax(tmp_path):
-    """The port's CLI (with --msa) never imports JAX."""
+    """The port's CLI (with --msa, and on the hybrid backend with -m 0)
+    never imports JAX."""
     path = tmp_path / "two.dbn"
     path.write_text(">h1\nGGGGAAAACCCC\n((((....))))\n"
                     ">h2\nGGGCAAAAGCCC\n(((.(...))))\n")
     out, msa = tmp_path / "out.lib", tmp_path / "msa.fa"
+    exact = tmp_path / "exact.lib"
     code = (
         "import sys\n"
         "from lara_tpu_torch.cli import main\n"
         f"rc = main(['-i', {str(path)!r}, '-w', {str(out)!r}, "
         f"'--msa', {str(msa)!r}])\n"
+        "assert rc == 0, rc\n"
+        f"rc = main(['-i', {str(path)!r}, '-w', {str(exact)!r}, '-m', '0'])\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
@@ -131,6 +141,8 @@ def test_cli_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert out.read_text().startswith("! T-COFFEE_LIB_FORMAT_01")
     assert msa.read_text().count(">") == 2
+    assert exact.read_text() == run_backend(str(path), "reference",
+                                            matching=0)
 
 
 def test_cli_reference_backend_matches_golden(tmp_path):
@@ -183,9 +195,32 @@ def test_kernel_build_failure_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,env", [
-    ({"matching": 0}, {}),
-    ({"matching": 9}, {}),
-    ({}, {"LARA_SOLVER": "hybrid"}),
+    ({"matching": 0, "num_iterations": 80}, {}),
+    ({"matching": 9, "num_iterations": 80}, {}),
+    ({"num_iterations": 80}, {"LARA_SOLVER": "hybrid"}),
+])
+def test_host_matching_modes_route_to_hybrid(tmp_path, monkeypatch, kw, env):
+    """Exact matching, lookahead beyond 8 and LARA_SOLVER=hybrid run on the
+    hybrid backend and write the scalar mirror's library bytes."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    from lara_tpu_torch.solver import hybrid_driver
+
+    buckets = []
+    solve_bucket = hybrid_driver._solve_bucket
+
+    def spy(*args):
+        buckets.append(args[3:5])
+        return solve_bucket(*args)
+
+    monkeypatch.setattr(hybrid_driver, "_solve_bucket", spy)
+    path = write_conflicting(tmp_path)
+    port = run_port(path, **kw)
+    assert buckets, "the hybrid backend was not used"
+    assert port == run_backend(path, "reference", **kw)
+
+
+@pytest.mark.parametrize("kw,env", [
     ({}, {"LARA_REFILL": "1"}),
 ])
 def test_unported_modes_raise(tmp_path, monkeypatch, kw, env):
