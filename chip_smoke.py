@@ -11,22 +11,31 @@ card, no JAX).  Phases, each fatal on failure:
    both with CUDA events:
    K1 + K2 (wavefront DP + traceback), K1-grid + K2-grid (one launch per
    block of diagonals) and K-res (both in one CTA, codes in shared memory)
-   at B=128 96x96 and B=32 320x320, K3 (greedy matching) at the main path's
-   B=128 and B=32 with W=512 columns, and at B=128 with W=256 and W=1024,
-   lookahead 1, 2, 5, 8;
+   at B=128 96x96 and B=32 320x320, K1 + K2 at the 16S chunk's B=32
+   1536x1536 (55 KB of opt-in shared memory), K3 (greedy matching) at the
+   main path's B=128 and B=32 with W=512 columns and B=32 W=1536 S=1536,
+   and at B=128 with W=256 and W=1024, lookahead 1, 2, 5, 8;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
-   tRNA family (120 pairs of ~72 nt) and a ~300 nt family (28 pairs): the
-   fused main path with default parameters on both, the hybrid backend at
-   ``-m 0`` on tRNA, the hybrid at ``-m 12`` on ~300 nt under
-   ``LARA_DP_RESIDENT=1``, and the fused path under ``LARA_DP_GRID=1`` on
-   tRNA.  Every pair must equal the native C++ baseline under
-   ``bench._full_depth_ok`` (columns, best_lower, best_upper, iterations),
-   the library bytes must equal the library built from the native results,
-   and the launch counts, set to 0 before each run, must show exactly the
-   kernels the run is meant to launch;
-4. profile 25 warm iterations of each family's fused chunk: the unprofiled
-   wall per iteration, and from ``torch.profiler`` the device busy share,
-   kernels per iteration and the K1/K2/K3 time.
+   tRNA family (120 pairs of ~72 nt), a ~300 nt family (28 pairs), the
+   bench's 16S family (28 pairs of 1530 nt, one 1536x1536 bucket) and the
+   tRNA and ~300 nt families as one (276 pairs in three buckets): the
+   fused main path with default parameters on all four (16S is one chunk,
+   the mixed family's buckets run one after another), lane refill
+   (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA pairs through 64 lanes),
+   the hybrid backend at ``-m 0`` on tRNA, the hybrid at ``-m 12`` on
+   ~300 nt under ``LARA_DP_RESIDENT=1``, and the fused path under
+   ``LARA_DP_GRID=1`` on tRNA.  Every pair must equal the native C++
+   baseline under ``bench._full_depth_ok`` (columns, best_lower,
+   best_upper, iterations; on 16S the native pairs run on a thread pool,
+   and three of them again alone for the one-thread rate), the library bytes must equal the library built from the native
+   results, and the launch counts, set to 0 before each run, must show
+   exactly the kernels the run is meant to launch.  16S runs again under
+   ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
+   under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
+   ``LARA_PIPELINE=1`` in turns; each must write the same bytes;
+4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks: the
+   unprofiled wall per iteration, and from ``torch.profiler`` the device
+   busy share, kernels per iteration and the K1/K2/K3 time.
 
 It then prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -36,6 +45,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -89,10 +99,11 @@ def _max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def _dp_phase(b, la_max, lb_max, seed, dev, stats):
-    """K1 + K2, K1-grid + K2-grid and K-res against the plain DP and
-    traceback on one random batch.  The variants compute the plain
-    versions' functions, so their plain times are K1's and K2's."""
+def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
+    """K1 + K2, and with ``variants`` K1-grid + K2-grid and K-res, against
+    the plain DP and traceback on one random batch.  The variants compute
+    the plain versions' functions, so their plain times are K1's and
+    K2's."""
     import torch
 
     from lara_tpu.types import PSSM_INIT
@@ -109,8 +120,9 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats):
     pssm_t, seq_t, la_t, lb_t = (torch.from_numpy(x).to(dev)
                                  for x in (pssm, seq, la, lb))
     dchunk = gotoh_plan.fused_dchunk(la_max, lb_max)
-    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT))
-    if gotoh_plan.resident_bytes(la_max, lb_max) > gotoh_cuda.smem_optin(dev):
+    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT)) if variants else None
+    if variants and gotoh_plan.resident_bytes(la_max, lb_max) \
+            > gotoh_cuda.smem_optin(dev):
         raise AssertionError(f"{la_max}x{lb_max} does not fit K-res")
 
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
@@ -118,11 +130,12 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats):
     tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, go, ge,
                                    seq_t)
     tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, go, ge, seq_t)
-    dirs_g, finals_g = gotoh_cuda.dp_forward_grid(skewed, la_t, lb_t, go, ge,
-                                                  dchunk)
-    tb_g = gotoh_cuda.dp_traceback_grid(dirs_g, finals_g, la_t, lb_t, go, ge,
-                                        seq_t, dchunk)
-    tb_r = gotoh_cuda.align_resident(pssm_t, la_t, lb_t, go, ge, seq_t)
+    if variants:
+        dirs_g, finals_g = gotoh_cuda.dp_forward_grid(skewed, la_t, lb_t, go,
+                                                      ge, dchunk)
+        tb_g = gotoh_cuda.dp_traceback_grid(dirs_g, finals_g, la_t, lb_t, go,
+                                            ge, seq_t, dchunk)
+        tb_r = gotoh_cuda.align_resident(pssm_t, la_t, lb_t, go, ge, seq_t)
     torch.cuda.synchronize()
     # direction codes are defined on the valid cells (i <= la, d-i <= lb)
     d_idx = torch.arange(la_max + lb_max + 1, device=dev)[None, :, None]
@@ -138,14 +151,14 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats):
     def tb_err(tb):
         return max(_max_abs_err(g, w) for g, w in zip(tb, tb_p))
 
-    errs = {
-        "gotoh_dp": dp_err(dirs_k, finals_k),
-        "gotoh_tb": tb_err(tb_k),
-        "gotoh_grid_dp": dp_err(
-            dirs_g[:la_max + lb_max + 1].permute(1, 0, 2), finals_g),
-        "gotoh_grid_tb": tb_err(tb_g),
-        "gotoh_resident": tb_err(tb_r),
-    }
+    errs = {"gotoh_dp": dp_err(dirs_k, finals_k), "gotoh_tb": tb_err(tb_k)}
+    if variants:
+        errs.update({
+            "gotoh_grid_dp": dp_err(
+                dirs_g[:la_max + lb_max + 1].permute(1, 0, 2), finals_g),
+            "gotoh_grid_tb": tb_err(tb_g),
+            "gotoh_resident": tb_err(tb_r),
+        })
     if any(errs.values()):
         raise AssertionError(f"a DP kernel disagrees with the plain version "
                              f"at B={b} {la_max}x{lb_max}: {errs}")
@@ -161,6 +174,25 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats):
         "gotoh_tb": (
             _time_ms(lambda: gotoh_cuda.dp_traceback(
                 dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50), plain_tb),
+    }
+    if variants:
+        times.update(_variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t,
+                                    dchunk, dirs_g, finals_g, plain_dp,
+                                    plain_tb))
+    shape = f"B={b} {la_max}x{lb_max}"
+    for name, err in errs.items():
+        ms, plain_ms = times[name]
+        label = f"{shape} dchunk={dchunk}" if "grid" in name else shape
+        stats[name].append((label, err, ms, plain_ms))
+        print(f"  {name:16s} {label:24s} max_abs_err {err}  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+
+
+def _variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t, dchunk, dirs_g,
+                   finals_g, plain_dp, plain_tb):
+    from lara_tpu_torch.ops import gotoh_cuda
+
+    return {
         "gotoh_grid_dp": (
             _time_ms(lambda: gotoh_cuda.dp_forward_grid(
                 skewed, la_t, lb_t, go, ge, dchunk), 20), plain_dp),
@@ -172,13 +204,6 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats):
             _time_ms(lambda: gotoh_cuda.align_resident(
                 pssm_t, la_t, lb_t, go, ge, seq_t), 50), plain_dp + plain_tb),
     }
-    shape = f"B={b} {la_max}x{lb_max}"
-    for name, err in errs.items():
-        ms, plain_ms = times[name]
-        label = f"{shape} dchunk={dchunk}" if "grid" in name else shape
-        stats[name].append((label, err, ms, plain_ms))
-        print(f"  {name:16s} {label:24s} max_abs_err {err}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
 
 
 def _matching_case(b, width, slots, seed):
@@ -231,17 +256,58 @@ def _matching_phase(b, width, slots, lookahead, seed, dev, stats):
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
 
 
-def _main_path(label, records, dev, tmp, expect, matching=5, env=None):
-    """One run of the port's CLI path on a family, checked pair by pair
-    against the native C++ baseline.  The launch counts are set to 0 just
-    before the run and read just after it; the kernels that launched must
-    be exactly ``expect``.  Returns the counts."""
-    import torch
+def _native_check(name, store, pairs, params, run, library, threads):
+    """Every pair of ``run`` against the native C++ baseline at full depth,
+    and the library bytes against the one built from the native results.
+    The native pairs run on ``threads`` host threads (the native library
+    releases the GIL).  Returns (seconds, pairs) of one lone host thread:
+    all pairs when ``threads`` is 1, else three evenly spaced pairs solved
+    again one after another, since threads running together slow each
+    other."""
+    from concurrent.futures import ThreadPoolExecutor
 
     from bench import _full_depth_ok
-    from lara_tpu.app import enumerate_pairs, load_input
-    from lara_tpu.io.writers import OutputLibrary, write_ebpseq
+    from lara_tpu.io.writers import OutputLibrary
     from lara_tpu.native import baseline as native_baseline
+
+    def solve(pair):
+        start = time.perf_counter()
+        nat = native_baseline.solve_pair(store[pair[0]], store[pair[1]],
+                                         params, pair)
+        return nat, time.perf_counter() - start
+
+    by_pair = {r.seq_indices: r for r in run.results}
+    native_lib = OutputLibrary(store, "lib")
+    pair_seconds = 0.0
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        for nat, seconds in pool.map(solve, pairs):
+            pair_seconds += seconds
+            dev_res = by_pair[nat.seq_indices]
+            if not _full_depth_ok(dev_res, nat.columns, nat.best_lower,
+                                  nat.best_upper, nat.iterations):
+                raise AssertionError(f"{name}: pair {nat.seq_indices} "
+                                     "differs from the native baseline")
+            native_lib.add_alignment(nat.seq_indices, nat.columns, nat.score)
+    if len(run.results) != len(pairs) or native_lib.to_string() != library:
+        raise AssertionError(f"{name}: library differs from the native one")
+    if threads == 1:
+        return pair_seconds, len(pairs)
+    alone = pairs[::-(-len(pairs) // 3)]  # three pairs, evenly spaced
+    return sum(solve(pair)[1] for pair in alone), len(alone)
+
+
+def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
+               native_threads=1, same_as=None):
+    """One run of the port's CLI path on a family.  The launch counts are
+    set to 0 just before the run and read just after it; the kernels that
+    launched must be exactly ``expect``.  Every pair is checked against the
+    native C++ baseline (on ``native_threads`` threads), or, with
+    ``same_as``, the library bytes against that library.  Returns (counts,
+    library, wall seconds)."""
+    import torch
+
+    from lara_tpu.app import enumerate_pairs, load_input
+    from lara_tpu.io.writers import write_ebpseq
     from lara_tpu.params import Parameters
     from lara_tpu.utils import timing
     from lara_tpu_torch import _build, app
@@ -277,26 +343,20 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None):
 
     store = load_input(params)
     pairs = enumerate_pairs(store)
-    by_pair = {r.seq_indices: r for r in run.results}
-    native_lib = OutputLibrary(store, "lib")
-    native_start = time.perf_counter()
-    for (ia, ib) in pairs:
-        nat = native_baseline.solve_pair(store[ia], store[ib], params, (ia, ib))
-        dev_res = by_pair[nat.seq_indices]
-        if not _full_depth_ok(dev_res, nat.columns, nat.best_lower,
-                              nat.best_upper, nat.iterations):
-            raise AssertionError(f"{name}: pair {nat.seq_indices} differs "
-                                 "from the native baseline")
-        native_lib.add_alignment(nat.seq_indices, nat.columns, nat.score)
-    native_s = time.perf_counter() - native_start
-    if len(run.results) != len(pairs) or native_lib.to_string() != library:
-        raise AssertionError(f"{name}: library differs from the native one")
     iters = [r.iterations for r in run.results]
+    if same_as is not None:
+        if library != same_as or len(run.results) != len(pairs):
+            raise AssertionError(f"{name}: library differs from the one of "
+                                 "the run before")
+        checked = "the same library bytes as the run before"
+    else:
+        native_s, native_n = _native_check(name, store, pairs, params, run,
+                                           library, native_threads)
+        checked = "all equal to the native baseline"
     print(f"  {name}: {len(pairs)} pairs of "
-          f"{max(len(r.sequence) for r in store)} nt, all equal to the native "
-          f"baseline; wall {wall:.3f} s, {len(pairs) / wall:.3f} "
-          f"alignments/s, mean iterations {np.mean(iters):.1f} (max "
-          f"{max(iters)})")
+          f"{max(len(r.sequence) for r in store)} nt, {checked}; wall "
+          f"{wall:.3f} s, {len(pairs) / wall:.3f} alignments/s, mean "
+          f"iterations {np.mean(iters):.1f} (max {max(iters)})")
     print("    phases: " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
     if hybrid_driver.turns:
         turns = hybrid_driver.turns
@@ -304,10 +364,107 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None):
               f"{1e3 * phases['hybrid device step'] / turns:.3f} ms device "
               f"step (uploads, DP, download) + "
               f"{1e3 * phases['hybrid host step'] / turns:.3f} ms host step")
-    print(f"    native C++ baseline, one host thread, same pairs: {native_s:.3f}"
-          f" s, {len(pairs) / native_s:.3f} alignments/s")
+    if same_as is None:
+        timed = "same pairs" if native_n == len(pairs) else \
+            f"{native_n} evenly spaced pairs, run alone after the check on " \
+            f"{native_threads} threads"
+        print(f"    native C++ baseline, one host thread, {timed}: "
+              f"{native_s:.3f} s, {native_n / native_s:.3f} alignments/s")
     print(f"    launches: {launches}")
-    return launches
+    return launches, library, wall
+
+
+def _refill_path(family, dev, tmp, expect):
+    """The fused path with lane refill: 120 tRNA pairs through 64 lanes
+    (``LARA_REFILL=1 LARA_MAX_BATCH=64``, the configuration the JAX driver
+    measured, ``lara_tpu/solver/device_driver.py:124-128``)."""
+    from lara_tpu_torch.solver import device_driver
+
+    device_driver.last_refill = None
+    run, _, _ = _main_path(*family, dev, tmp, expect,
+                           env={"LARA_REFILL": "1", "LARA_MAX_BATCH": "64"})
+    stats = device_driver.last_refill
+    if stats is None or (stats.pairs, stats.lanes) != (120, 64):
+        raise AssertionError(f"the refill did not run as configured: {stats}")
+    print(f"    refill: {stats.pairs} pairs through {stats.lanes} lanes, "
+          f"{stats.dispatches} dispatches, mean occupancy "
+          f"{stats.occupancy:.4f}")
+    return run
+
+
+@contextlib.contextmanager
+def _pipelined_chunks():
+    """A list that gets (pairs, on a CUDA stream of its own) for every
+    chunk the cross-chunk pipeline's solver thread runs."""
+    from lara_tpu_torch.solver import device_driver
+
+    solved = []
+    solve_on = device_driver._solve_on
+
+    def spy(stream, prep, params):
+        solved.append((len(prep.chunk), stream is not None))
+        return solve_on(stream, prep, params)
+
+    device_driver._solve_on = spy
+    try:
+        yield solved
+    finally:
+        device_driver._solve_on = solve_on
+
+
+def _long_path(family, dev, tmp, expect):
+    """The 16S family, one 1536x1536 bucket of 28 pairs.  By default it is
+    one chunk of 32 lanes, neither split nor pipelined; every pair is
+    checked against the native baseline on a thread pool.  Then
+    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (two halves of 14 pairs, 16
+    lanes each, through the pipeline on the solver thread's stream) and
+    ``LARA_NO_PIPELINE=1`` must write the same library bytes.  Returns the
+    default run's launch counts."""
+    walls = {}
+    with _pipelined_chunks() as solved:
+        run, library, walls["default"] = _main_path(
+            *family, dev, tmp, expect, native_threads=os.cpu_count() or 1)
+        if solved:
+            raise AssertionError(f"16S default ran the pipeline: {solved}")
+        _, _, walls["split + pipelined"] = _main_path(
+            *family, dev, tmp, expect,
+            env={"LARA_SPLIT_SINGLE": "1", "LARA_PIPELINE": "1"},
+            same_as=library)
+        if solved != [(14, True), (14, True)]:
+            raise AssertionError(f"16S did not split and pipeline: {solved}")
+    _, _, walls["LARA_NO_PIPELINE=1"] = _main_path(
+        *family, dev, tmp, expect, env={"LARA_NO_PIPELINE": "1"},
+        same_as=library)
+    print("    16S wall: " + ", ".join(f"{k} {v:.3f} s"
+                                       for k, v in walls.items())
+          + " (pipelined phase times overlap and sum past the wall)")
+    return run
+
+
+def _mixed_path(family, dev, tmp, expect):
+    """A family of mixed lengths: three buckets (96x96, 96x320, 320x320),
+    solved one after another by default.  Every pair is checked against
+    the native baseline on one thread (pair costs differ too much for a
+    sample of three), then ``LARA_PIPELINE=1`` and the default run in
+    turns (serial, pipelined, serial, pipelined), each with the same
+    library bytes, and the pipelined runs must put all three buckets
+    through the solver thread's stream.  Returns the first run's launch
+    counts."""
+    with _pipelined_chunks() as solved:
+        run, library, wall = _main_path(*family, dev, tmp, expect)
+        walls = {"default (serial)": [wall], "LARA_PIPELINE=1": []}
+        for key in ("LARA_PIPELINE=1", "default (serial)",
+                    "LARA_PIPELINE=1"):
+            env = {"LARA_PIPELINE": "1"} if key == "LARA_PIPELINE=1" else {}
+            walls[key].append(_main_path(*family, dev, tmp, expect, env=env,
+                                         same_as=library)[2])
+    if len(solved) != 6 or not all(on_stream for _, on_stream in solved):
+        raise AssertionError("the pipelined runs did not put 3 chunks each "
+                             f"through the solver stream: {solved}")
+    print("    mixed wall, in turns: " + "; ".join(
+        f"{k} " + ", ".join(f"{w:.3f}" for w in v) + " s"
+        for k, v in walls.items()))
+    return run
 
 
 def _profile_phase(label, records, dev, n_iter=25):
@@ -326,8 +483,9 @@ def _profile_phase(label, records, dev, n_iter=25):
 
     params = Parameters(in_file="<bench>")
     pad = _pad_dim(max(len(r.sequence) for r in records))
+    pairs = enumerate_pairs(records)
     models, _ = device_driver._filter_and_build(
-        records, enumerate_pairs(records), params, pad, pad, dev)
+        records, pairs, params, pad, pad, dev)
     batch, scan_steps = device_driver._pack_models(models, pad, pad, dev)
     b, d = batch.dual_l.shape
 
@@ -404,11 +562,15 @@ def main() -> int:
     stats = {name: [] for name in KERNELS}
     _dp_phase(128, 96, 96, 1, dev, stats)
     _dp_phase(32, 320, 320, 2, dev, stats)
-    # K3 first at the main path's shapes (both chunks have D=1024 dual
-    # entries, so W=512 queue columns; S=LA line slots), then the fuzz
-    # widths at every lookahead
+    # the 16S chunk: K1 with 55 KB of opt-in shared memory, K2's walk of
+    # up to 3072 steps (K-res does not fit, the grid kernels are off path)
+    _dp_phase(32, 1536, 1536, 3, dev, stats, variants=False)
+    # K3 first at the main path's shapes (the tRNA and ~300 nt chunks have
+    # D=1024 dual entries, so W=512 queue columns, the 16S chunk D=3072, so
+    # W=1536; S=LA line slots), then the fuzz widths at every lookahead
     _matching_phase(128, 512, 96, 5, 20, dev, stats)
     _matching_phase(32, 512, 320, 5, 21, dev, stats)
+    _matching_phase(32, 1536, 1536, 5, 22, dev, stats)
     for width in (256, 1024):
         for lookahead in (5, 1, 2, 8):
             _matching_phase(128, width, 96, lookahead, 10 + lookahead, dev,
@@ -418,32 +580,48 @@ def main() -> int:
         ("trna-72nt", make_family(n=16)),
         ("rrna-300nt", make_long_family(n=8, length=300, seed=31,
                                         mutations=12)),
+        ("16S-1530nt-batch28", make_long_family(n=8, length=1530, seed=47)),
     ]
-    trna, rrna = families
+    trna, rrna, long16 = families
     fused = ("gotoh_dp", "gotoh_tb", "matching_rounds")
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as tmp:
         print("main path: lara_tpu_torch.app.run, default parameters:")
-        for label, records in families:
-            run = _main_path(label, records, dev, tmp, fused)
+        for label, records in (trna, rrna):
+            run, _, _ = _main_path(label, records, dev, tmp, fused)
             for name in fused:
                 launches[name] += run[name]
+        print("lane refill:")
+        run = _refill_path(trna, dev, tmp, fused)
+        for name in fused:
+            launches[name] += run[name]
+        print("16S, one 1536x1536 bucket:")
+        run = _long_path(long16, dev, tmp, fused)
+        for name in fused:
+            launches[name] += run[name]
+        print("mixed lengths, three buckets, serial and pipelined:")
+        run = _mixed_path(("mixed-trna+300nt", trna[1] + rrna[1]), dev, tmp,
+                          fused)
+        for name in fused:
+            launches[name] += run[name]
         print("hybrid backend (host matching):")
         _main_path(*trna, dev, tmp, ("gotoh_dp", "gotoh_tb"), matching=0)
-        run = _main_path(*rrna, dev, tmp, ("gotoh_resident",), matching=12,
-                         env={"LARA_DP_RESIDENT": "1"})
+        run, _, _ = _main_path(*rrna, dev, tmp, ("gotoh_resident",),
+                               matching=12, env={"LARA_DP_RESIDENT": "1"})
         launches["gotoh_resident"] = run["gotoh_resident"]
         print("fused path, grid-stepped DP kernels:")
-        run = _main_path(*trna, dev, tmp,
-                         ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds"),
-                         env={"LARA_DP_GRID": "1"})
+        run, _, _ = _main_path(
+            *trna, dev, tmp,
+            ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds"),
+            env={"LARA_DP_GRID": "1"})
         launches["gotoh_grid_dp"] = run["gotoh_grid_dp"]
         launches["gotoh_grid_tb"] = run["gotoh_grid_tb"]
-    print(f"  kernel launches, each from the run meant to launch it: "
+    print(f"  kernel launches, each from the runs meant to launch it: "
           f"{launches}")
     print("where one chunk's solve spends its time:")
-    for label, records in families:
+    for label, records in (trna, rrna):
         _profile_phase(label, records, dev)
+    _profile_phase(*long16, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

@@ -1,15 +1,17 @@
 """Build, bind and count the port's CUDA kernels.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` (sm_90a) into one shared library
-with a plain C interface under ``_build/``, at first use and again whenever
-a source (``*.cu`` or ``*.cuh``) is newer than the library (the scheme of
+Every ``csrc/*.cu`` compiles with ``nvcc`` (sm_90a), one process per source
+started together, and the objects link into one shared library with a
+plain C interface under ``_build/``, at first use and again whenever a
+source (``*.cu`` or ``*.cuh``) is newer than the library (the scheme of
 :func:`lara_tpu.native.shared_library`).  ``ctypes`` binds it: pointers and
 the CUDA stream go over as ``c_void_p``, every entry point returns its
 ``cudaGetLastError()``, and :func:`check` raises on anything but 0.  A
 failed build raises; nothing falls back to another path.
 
-``launches`` counts kernel launches per kernel: each wrapper adds one where
-it launches its kernel, and nowhere else.
+``launches`` counts kernel launches per kernel: each wrapper calls
+:func:`count` where it launches its kernel, and nowhere else (the driver's
+pipeline launches from a worker thread, so the count takes a lock).
 """
 
 from __future__ import annotations
@@ -27,13 +29,14 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libkernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-Xcompiler", "-fPIC"]
 
 #: kernel launches per kernel since the last :func:`reset_launches`
 launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
             "gotoh_grid_dp": 0, "gotoh_grid_tb": 0, "gotoh_resident": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 _build_seconds = 0.0
 
@@ -47,8 +50,15 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel ``name``."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def build_seconds() -> float:
@@ -70,21 +80,45 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds) -> None:
+    """Run the ``nvcc`` commands ``cmds`` all at once; raise if any fails.
+    No process outlives the call."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, proc in procs:
+            _out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({' '.join(cmd)}):\n{err[-4000:]}")
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        raise KernelBuildError(f"cannot run nvcc: {exc}") from exc
+    finally:
+        for _cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def _build(sources) -> None:
     global _build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     start = time.monotonic()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
-    except (OSError, subprocess.TimeoutExpired) as exc:
-        raise KernelBuildError(f"cannot run nvcc: {exc}") from exc
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, LIBRARY)
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in zip(sources, objects)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]])
+        os.replace(tmp, LIBRARY)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     _build_seconds = time.monotonic() - start
 
 

@@ -19,6 +19,7 @@ from lara_tpu.params import Parameters
 from lara_tpu.solver.reference_driver import PairResult
 from lara_tpu.utils import log, timing
 from lara_tpu_torch._device import resolve_device
+from lara_tpu_torch.utils.timing import maybe_trace
 
 
 class Run(NamedTuple):
@@ -29,7 +30,9 @@ class Run(NamedTuple):
 def run(params: Parameters, device: torch.device = None) -> Run:
     """Solve every pair of the input.  ``--backend device`` (the default)
     runs on ``device``, or on the one ``LARA_PLATFORM`` selects;
-    ``--backend reference`` runs the NumPy scalar mirror."""
+    ``--backend reference`` runs the NumPy scalar mirror.  With
+    ``LARA_PROFILE=<dir>`` the solve is traced with ``torch.profiler``
+    into ``<dir>``."""
     time_start = time.monotonic()
     timing.reset()
     if params.backend == "device" and device is None:
@@ -52,7 +55,7 @@ def run(params: Parameters, device: torch.device = None) -> Run:
 
         solved = device_driver.solve_all(store, pairs, params, device)
     results = []
-    with timing.phase("solve"):
+    with maybe_trace(), timing.phase("solve"):
         for result in solved:
             outlib.add_alignment(result.seq_indices, result.columns,
                                  result.score)

@@ -60,7 +60,7 @@ def dp_forward(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
         int(go), int(ge), dirs.data_ptr(), finals.data_ptr(),
         _build.stream_of(pssm))
     _build.check(rc, "gotoh_dp")
-    _build.launches["gotoh_dp"] += 1
+    _build.count("gotoh_dp")
     return dirs, finals
 
 
@@ -86,7 +86,7 @@ def dp_traceback(dirs: torch.Tensor, finals: torch.Tensor, la: torch.Tensor,
         seq_score.data_ptr(), b, la_max, lb_max, int(go), int(ge),
         partner.data_ptr(), scalars.data_ptr(), _build.stream_of(dirs))
     _build.check(rc, "gotoh_tb")
-    _build.launches["gotoh_tb"] += 1
+    _build.count("gotoh_tb")
     return _traceback_of(partner, scalars)
 
 
@@ -128,7 +128,7 @@ def dp_forward_grid(skewed: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
             dchunk, int(go), int(ge), state.data_ptr(), dirs.data_ptr(),
             finals.data_ptr(), stream)
         _build.check(rc, "gotoh_grid_dp")
-        _build.launches["gotoh_grid_dp"] += 1
+        _build.count("gotoh_grid_dp")
     return dirs, finals
 
 
@@ -174,7 +174,7 @@ def dp_traceback_grid(dirs: torch.Tensor, finals: torch.Tensor,
             walker.data_ptr(), partner.data_ptr(), scalars.data_ptr(),
             stream)
         _build.check(rc, "gotoh_grid_tb")
-        _build.launches["gotoh_grid_tb"] += 1
+        _build.count("gotoh_grid_tb")
     return _traceback_of(partner, scalars)
 
 
@@ -198,7 +198,7 @@ def align_resident(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
         b, la_max, lb_max, int(go), int(ge), partner.data_ptr(),
         scalars.data_ptr(), _build.stream_of(pssm))
     _build.check(rc, "gotoh_resident")
-    _build.launches["gotoh_resident"] += 1
+    _build.count("gotoh_resident")
     return _traceback_of(partner, scalars)
 
 

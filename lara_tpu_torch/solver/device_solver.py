@@ -28,11 +28,16 @@ the two data-dependent loops, a dispatch runs all of its iterations (every
 carry write is masked by the lane's activity, so iterations after all lanes
 finish change nothing) and :func:`solve_batch` reads ``lane_active.any()``
 once per dispatch.  On the CPU, where that read is free, a dispatch also
-stops as soon as no lane is active.
+stops as soon as no lane is active.  ``LARA_CHUNK`` sets the iterations per
+dispatch (:func:`dispatch_size`).
+
+:func:`splice_lanes` reloads lanes of a live (model, carry) with new pairs:
+the driver's lane refill.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -46,6 +51,20 @@ F32 = torch.float32
 NEG_INF = -int(INFINITY)
 #: iterations per dispatch: the any-lane-active flag is read between them
 DISPATCH = 125
+
+
+def dispatch_size() -> int:
+    """Iterations per dispatch: ``DISPATCH``, or ``LARA_CHUNK`` where set
+    (the JAX solver's knob; there a value <= 0 never ends the loop, here it
+    raises ``ValueError``)."""
+    override = os.environ.get("LARA_CHUNK")
+    if not override:
+        return DISPATCH
+    value = int(override)
+    if value <= 0:
+        raise ValueError(
+            f"LARA_CHUNK must be a positive int, got {override!r}")
+    return value
 
 
 class BatchModel(NamedTuple):
@@ -175,16 +194,17 @@ def _run_top(p, idx, same_masks, p_fill, idx_fill):
 def solve_batch(model: BatchModel, go, ge, step_factor0, la_max: int,
                 lb_max: int, num_iterations: int, max_nondecr: int,
                 lookahead: int, scan_steps: int = 0) -> BatchResult:
-    """Solve in dispatches of ``DISPATCH`` iterations; the carry stays on
-    the device between dispatches, and the any-lane-active flag is read
-    once per dispatch."""
+    """Solve in dispatches of :func:`dispatch_size` iterations; the carry
+    stays on the device between dispatches, and the any-lane-active flag is
+    read once per dispatch."""
+    dispatch = dispatch_size()
     b = model.seq_score.shape[0]
     d = model.dual_l.shape[1]
     carry = _init_carry(b, d, la_max, step_factor0, num_iterations,
                         model.seq_score.device)
     total = 0
     while total < num_iterations:
-        steps = min(DISPATCH, num_iterations - total)
+        steps = min(dispatch, num_iterations - total)
         carry = solve_batch_chunk(model, carry, go, ge, la_max, lb_max,
                                   steps, max_nondecr, lookahead, scan_steps)
         total += steps
@@ -391,3 +411,37 @@ def solve_batch_chunk(model: BatchModel, carry: _Carry, go, ge, la_max: int,
         carry = _iteration(model, st, carry, go, ge, la_max, lb_max,
                            max_nondecr, lookahead)
     return carry
+
+
+def splice_lanes(model: BatchModel, carry: _Carry, lanes, rows: BatchModel,
+                 step_factor0, num_iterations: int
+                 ) -> Tuple[BatchModel, _Carry]:
+    """Load new pairs into ``lanes`` of a live (model, carry) and reset
+    their solver state to :func:`_init_carry`'s values: the chunk-boundary
+    lane refill, the reference's shared-iterator steal
+    (``subgradient_solver.hpp:286-325``).  Counterpart of
+    ``lara_tpu.solver.device_solver.splice_lanes``.
+
+    ``lanes`` holds distinct lane indices (a sequence or an int tensor) and
+    ``rows`` one :class:`BatchModel` row per lane, padded as the model is
+    (every ``rev`` row an involution, identity on padding).  Eager torch
+    needs no fixed splice width and no drop slots: there is no compiled
+    program to reuse.  Returns a new (model, carry); the inputs are left
+    as they were."""
+    dev = model.la.device
+    lanes = torch.as_tensor(lanes, dtype=torch.long).to(dev)
+    k = lanes.shape[0]
+    for name, arr, row in zip(BatchModel._fields, model, rows):
+        if row.dtype != arr.dtype or tuple(row.shape) != (k,) + tuple(
+                arr.shape[1:]):
+            raise ValueError(
+                f"splice_lanes: rows.{name} is {row.dtype} "
+                f"{tuple(row.shape)}, expected {arr.dtype} "
+                f"{(k,) + tuple(arr.shape[1:])}")
+    new_model = BatchModel(*(arr.index_copy(0, lanes, row.to(dev))
+                             for arr, row in zip(model, rows)))
+    fresh = _init_carry(k, model.dual_l.shape[1], carry.best_partner.shape[1],
+                        step_factor0, num_iterations, dev)
+    new_carry = _Carry(*(arr.index_copy(0, lanes, f)
+                         for arr, f in zip(carry, fresh)))
+    return new_model, new_carry

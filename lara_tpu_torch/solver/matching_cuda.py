@@ -40,5 +40,5 @@ def rounds_loop_cuda(lq, mq, wq, live, line_edges,
         line_edges.data_ptr(), b, width, slots, lh, blocked.data_ptr(),
         score.data_ptr(), used.data_ptr(), _build.stream_of(lq))
     _build.check(rc, "matching_rounds")
-    _build.launches["matching_rounds"] += 1
+    _build.count("matching_rounds")
     return RoundsResult(score=score, used_slot=used)

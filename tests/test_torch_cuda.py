@@ -3,7 +3,9 @@
 K1 + K2, K1-grid + K2-grid and K-res (``lara_tpu_torch.ops.gotoh_cuda``)
 and K3 (``lara_tpu_torch.solver.matching_cuda``) against the plain versions
 on the same CUDA tensors, with zero tolerance (every output is an
-integer).  This
+integer), K1 + K2 at the 16S bucket's 1536 x 1536 included; the driver's
+paths (fused, hybrid, lane refill, the cross-chunk pipeline on its CUDA
+streams) and ``splice_lanes`` on the card against the CPU.  This
 file imports no JAX, so it runs on a machine that has a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -257,3 +259,158 @@ def test_wrappers_reject_bad_inputs(cuda):
     cols = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="live"):
         matching_cuda.rounds_loop_cuda(cols, cols, cols, cols, cols, 5)
+
+
+def test_dp_kernels_at_16s_bucket(cuda):
+    """K1 + K2 at the 16S bucket, B=2 1536 x 1536: K1 needs 55 KB of
+    opt-in shared memory (nine rows of 1537 int32) and K2 walks up to 3072
+    steps per pair."""
+    case = (2, 1536, 1536, 17)
+    _b, la_max, lb_max, _seed = case
+    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    before = dict(_build.launches)
+    dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, GO, GE, seq_t)
+    assert _build.launches["gotoh_dp"] == before["gotoh_dp"] + 1
+    assert _build.launches["gotoh_tb"] == before["gotoh_tb"] + 1
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
+    torch.cuda.synchronize()
+    _int_equal(finals_k, finals_p, "finals")
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda)
+    _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
+               "dirs")
+    for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
+        _int_equal(got, want, field)
+
+
+def _write_family(path, lengths, seed):
+    """Point-mutated hairpin families, one per length, as dot-bracket
+    records whose structures conflict (the pairs iterate)."""
+    rng = np.random.default_rng(seed)
+    unit = "GGGCGCAAGCCUUAAGGCGCCC"
+    stems = ["(((((((......)))))))..", "((....((....))....))..",
+             "((((((....))))..((..))"]
+    lines = []
+    for length in lengths:
+        seq0 = (unit * (length // len(unit) + 1))[:length]
+        for k, stem in enumerate(stems * 2):
+            seq = list(seq0)
+            for _ in range(int(rng.integers(1, 4))):
+                seq[int(rng.integers(0, length))] = "ACGU"[rng.integers(0, 4)]
+            st = list((stem * (length // len(stem) + 1))[:length])
+            stack = []
+            for i, c in enumerate(st):
+                if c == "(":
+                    stack.append(i)
+                elif c == ")":
+                    stack.pop()
+            for i in stack:  # the cut left these unpaired
+                st[i] = "."
+            st = "".join(st)
+            lines.append(f">f{length}_{k}\n{''.join(seq)}\n{st}")
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def _solve_library(path, dev, **kw):
+    from lara_tpu.app import enumerate_pairs
+    from lara_tpu.io.records import InputStorage
+    from lara_tpu.io.writers import OutputLibrary
+    from lara_tpu.params import Parameters
+    from lara_tpu_torch.solver import device_driver
+
+    records = InputStorage(in_file=path)
+    params = Parameters(in_file=path, **kw)
+    lib = OutputLibrary(records, params.out_format)
+    for res in device_driver.solve_all(records, enumerate_pairs(records),
+                                       params, dev):
+        lib.add_alignment(res.seq_indices, res.columns, res.score)
+    return lib.to_string()
+
+
+def test_refill_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
+    """Lane refill on the card (15 pairs through 4 lanes, dispatches of 15
+    iterations) writes the CPU's bytes and launches K1, K2 and K3."""
+    from lara_tpu_torch.solver import device_driver
+
+    for key in ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_SOLVER"):
+        monkeypatch.delenv(key, raising=False)
+    path = _write_family(tmp_path / "family.dbn", [22], seed=3)
+    cpu = _solve_library(path, torch.device("cpu"), num_iterations=60)
+    monkeypatch.setenv("LARA_REFILL", "1")
+    monkeypatch.setenv("LARA_MAX_BATCH", "4")
+    monkeypatch.setenv("LARA_CHUNK", "15")
+    _build.reset_launches()
+    on_card = _solve_library(path, cuda, num_iterations=60)
+    assert {k for k, n in _build.launches.items() if n} == {
+        "gotoh_dp", "gotoh_tb", "matching_rounds"}
+    assert device_driver.last_refill.pairs == 15
+    assert device_driver.last_refill.dispatches > 1
+    assert on_card == cpu
+
+
+def test_pipeline_on_card_matches_cpu_serial(cuda, monkeypatch, tmp_path):
+    """Three length classes (six buckets) through the cross-chunk pipeline
+    (LARA_PIPELINE=1) on the card, its solver and download threads on
+    their own streams, against the serial CPU run."""
+    from lara_tpu_torch.solver import device_driver
+
+    for key in ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_SOLVER",
+                "LARA_MAX_BATCH", "LARA_PIPELINE"):
+        monkeypatch.delenv(key, raising=False)
+    path = _write_family(tmp_path / "mixed.dbn", [22, 60, 90], seed=4)
+    monkeypatch.setenv("LARA_NO_PIPELINE", "1")
+    serial = _solve_library(path, torch.device("cpu"), num_iterations=60)
+    monkeypatch.delenv("LARA_NO_PIPELINE")
+    monkeypatch.setenv("LARA_PIPELINE", "1")
+    solved = []
+    solve_on = device_driver._solve_on
+
+    def spy(stream, prep, params):
+        solved.append(stream is not None)
+        return solve_on(stream, prep, params)
+
+    monkeypatch.setattr(device_driver, "_solve_on", spy)
+    assert _solve_library(path, cuda, num_iterations=60) == serial
+    assert len(solved) == 6 and all(solved)
+
+
+def test_splice_lanes_on_card_matches_cpu(cuda):
+    from lara_tpu_torch.solver import device_solver
+
+    rng = np.random.default_rng(8)
+    b, ne, d, la_max = 5, 24, 12, 6
+
+    def model(n):
+        rev = np.broadcast_to(np.arange(d, dtype=np.int32), (n, d)).copy()
+        rev[:, :4] = [1, 0, 3, 2]
+        return device_solver.BatchModel(
+            seq_score=rng.integers(-9, 9, (n, ne)).astype(np.int32),
+            active=rng.random((n, ne)) < 0.5,
+            dual_l=rng.integers(0, ne, (n, d)).astype(np.int32),
+            dual_m=rng.integers(0, ne, (n, d)).astype(np.int32),
+            sscore=rng.integers(0, 9, (n, d)).astype(np.int32), rev=rev,
+            dvalid=rng.random((n, d)) < 0.5,
+            qrank=rev.copy(), la=np.full(n, 4, np.int32),
+            lb=np.full(n, 6, np.int32))
+
+    base, rows = model(b), model(2)
+    carry = device_solver._init_carry(b, d, la_max, np.float32(2.0), 50,
+                                      torch.device("cpu"))
+    carry = carry._replace(dual=torch.from_numpy(
+        rng.integers(-9, 9, (b, d)).astype(np.int32)),
+        lane_active=torch.from_numpy(rng.random(b) < 0.5))
+
+    def splice(dev):
+        out_model, out_carry = device_solver.splice_lanes(
+            device_solver.BatchModel(*(torch.from_numpy(a).to(dev)
+                                       for a in base)),
+            device_solver._Carry(*(t.to(dev) for t in carry)), [4, 1],
+            device_solver.BatchModel(*(torch.from_numpy(a).to(dev)
+                                       for a in rows)),
+            np.float32(1.5), 40)
+        return [t.cpu() for t in (*out_model, *out_carry)]
+
+    for got, want in zip(splice(cuda), splice(torch.device("cpu"))):
+        assert torch.equal(got, want)
