@@ -1,35 +1,40 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py`` (no arguments, one
-card, no JAX).  Phases, each fatal on failure:
+card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
 
-1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and the native host
-   libraries (g++) before anything is timed, and print the card, its power
-   limit, the torch version and the build times;
+1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and the port's native
+   host libraries (g++) before anything is timed, and print the card, its
+   power limit, the torch version and the build times;
 2. hold every kernel against its plain PyTorch version on the card, exactly
    (integer outputs, zero tolerance), at the main path's shapes, and time
-   both with CUDA events:
+   both with CUDA events beside the kernel's bound (bytes over 3.35 TB/s or
+   operations over 67 T/s, from this batch's data):
    K1 + K2 (wavefront DP + traceback), K1-grid + K2-grid (one launch per
    block of diagonals) and K-res (both in one CTA, codes in shared memory)
    at B=128 96x96 and B=32 320x320, K1 + K2 at the 16S chunk's B=32
-   1536x1536 (55 KB of opt-in shared memory), K3 (greedy matching) at the
-   main path's B=128 and B=32 with W=512 columns and B=32 W=1536 S=1536,
-   and at B=128 with W=256 and W=1024, lookahead 1, 2, 5, 8;
+   1536x1536 and at a ragged non-square B=40 333x700; K1 both in the
+   wrapper's clusters of CTAs per pair and at one CTA per pair; K2 as the
+   main path runs it, after a K1 that has just written its codes (the
+   pair's time less K1's); K3 (greedy matching) at the main path's B=128
+   and B=32 with W=512 columns and B=32 W=1536 S=1536, and at B=128 with
+   W=256 and W=1024, lookahead 1, 2, 5, 8;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
-   tRNA family (120 pairs of ~72 nt), a ~300 nt family (28 pairs), the
-   bench's 16S family (28 pairs of 1530 nt, one 1536x1536 bucket) and the
-   tRNA and ~300 nt families as one (276 pairs in three buckets): the
-   fused main path with default parameters on all four (16S is one chunk,
-   the mixed family's buckets run one after another), lane refill
-   (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA pairs through 64 lanes),
-   the hybrid backend at ``-m 0`` on tRNA, the hybrid at ``-m 12`` on
-   ~300 nt under ``LARA_DP_RESIDENT=1``, and the fused path under
-   ``LARA_DP_GRID=1`` on tRNA.  Every pair must equal the native C++
-   baseline under ``bench._full_depth_ok`` (columns, best_lower,
-   best_upper, iterations; on 16S the native pairs run on a thread pool,
-   and three of them again alone for the one-thread rate), the library bytes must equal the library built from the native
-   results, and the launch counts, set to 0 before each run, must show
-   exactly the kernels the run is meant to launch.  16S runs again under
+   families (``lara_tpu_torch.workloads``, copies of ``bench.py``'s): tRNA
+   (120 pairs of ~72 nt), ~300 nt (28 pairs), 16S (28 pairs of 1530 nt,
+   one 1536x1536 bucket) and the tRNA and ~300 nt families as one (276
+   pairs in three buckets): the fused main path with default parameters on
+   all four (16S is one chunk, the mixed family's buckets run one after
+   another), lane refill (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA
+   pairs through 64 lanes), the hybrid backend at ``-m 0`` on tRNA, the
+   hybrid at ``-m 12`` on ~300 nt under ``LARA_DP_RESIDENT=1``, and the
+   fused path under ``LARA_DP_GRID=1`` on tRNA.  Every pair must equal the
+   port's native C++ baseline under ``workloads.full_depth_ok`` (columns,
+   best_lower, best_upper, iterations; on 16S the native pairs run on a
+   thread pool, and three of them again alone for the one-thread rate),
+   the library bytes must equal the library built from the native results,
+   and the launch counts, set to 0 before each run, must show exactly the
+   kernels the run is meant to launch.  16S runs again under
    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
    under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
    ``LARA_PIPELINE=1`` in turns; each must write the same bytes;
@@ -37,10 +42,11 @@ card, no JAX).  Phases, each fatal on failure:
    unprofiled wall per iteration, and from ``torch.profiler`` the device
    busy share, kernels per iteration and the K1/K2/K3 time.
 
-It then prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
-Without CUDA, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+It then checks that neither JAX nor any module of the JAX package (nor
+``bench``) was loaded, prints a ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -73,12 +79,34 @@ KERNELS = {
 ALSO_REPLACES = {"gotoh_resident": "lara_tpu/ops/gotoh_pallas.py:550"}
 
 
+#: H100 SXM peaks (NVIDIA's data sheet, SXM part): HBM bytes/s, and
+#: the rate of 32-bit operations outside the tensor cores (float32's 67
+#: TFLOP/s), taken for the DP's integer adds, maxima and compares
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+#: operations per DP cell: three candidate sums and two maxima for each of
+#: M, H and V, and six compares for the direction codes
+DP_OPS_PER_CELL = 21
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ALU_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 def _time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call).  The card first sleeps ~20 ms while the host
+    queues the calls, so that a kernel shorter than the wrapper's host
+    work runs back to back and is not timed at the host's launch rate."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -99,15 +127,39 @@ def _max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def _dp_bounds(la, lb, la_max, tb):
+    """Bounds of K1 and K2 on this batch's data (numpy la, lb; the plain
+    traceback ``tb``).  K1 reads each valid cell's score once and writes its
+    code once.  K2 reads one code per step of each walk, la + lb - matches
+    steps, and one seq score per match, each a 32-byte sector (the least a
+    load of scattered bytes moves), and writes the partner rows."""
+    cells = float(((la + 1) * (lb + 1)).sum())
+    k1 = _bound(4.0 * float((la * lb).sum()) + cells + 12 * len(la),
+                DP_OPS_PER_CELL * cells)
+    matches = tb.n_lines.cpu().numpy().astype(np.int64)
+    steps = float((la + lb - matches).sum())
+    k2_bytes = 32.0 * (steps + float(matches.sum())) \
+        + 4.0 * len(la) * (la_max + 7)
+    k2 = _bound(k2_bytes, 8.0 * steps)
+    # K-res keeps the codes on chip: K1's score reads and K2's traffic
+    res = _bound(4.0 * float((la * lb).sum()) + k2_bytes,
+                 DP_OPS_PER_CELL * cells)
+    return {"gotoh_dp": k1, "gotoh_tb": k2, "gotoh_grid_dp": k1,
+            "gotoh_grid_tb": k2, "gotoh_resident": res}
+
+
 def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
     """K1 + K2, and with ``variants`` K1-grid + K2-grid and K-res, against
     the plain DP and traceback on one random batch.  The variants compute
-    the plain versions' functions, so their plain times are K1's and
-    K2's."""
+    the plain versions' functions, so their plain times are K1's and K2's.
+    K2 is timed as the main path runs it: each rep runs K1 and then K2 on
+    the codes K1 has just written, and K2's time is the pair's less K1's.
+    Where the wrapper runs K1 in clusters of several CTAs per pair, one CTA
+    per pair is timed beside it."""
     import torch
 
-    from lara_tpu.types import PSSM_INIT
     from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
+    from lara_tpu_torch.types import PSSM_INIT
 
     go, ge = -49152, -16384
     rng = np.random.default_rng(seed)
@@ -126,6 +178,8 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
         raise AssertionError(f"{la_max}x{lb_max} does not fit K-res")
 
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
+    dirs_1, finals_1 = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge,
+                                             cluster=1)
     dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge)
     tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, go, ge,
                                    seq_t)
@@ -151,7 +205,9 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
     def tb_err(tb):
         return max(_max_abs_err(g, w) for g, w in zip(tb, tb_p))
 
-    errs = {"gotoh_dp": dp_err(dirs_k, finals_k), "gotoh_tb": tb_err(tb_k)}
+    errs = {"gotoh_dp": max(dp_err(dirs_k, finals_k), dp_err(dirs_1,
+                                                             finals_1)),
+            "gotoh_tb": tb_err(tb_k)}
     if variants:
         errs.update({
             "gotoh_grid_dp": dp_err(
@@ -167,25 +223,40 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
                         2)
     plain_tb = _time_ms(lambda: gotoh.dp_traceback(
         dirs_p, finals_p, la_t, lb_t, go, ge, seq_t), 2)
-    times = {
-        "gotoh_dp": (
-            _time_ms(lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge),
-                     50), plain_dp),
-        "gotoh_tb": (
-            _time_ms(lambda: gotoh_cuda.dp_traceback(
-                dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50), plain_tb),
-    }
+
+    def k1_k2():
+        dirs, finals = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
+        gotoh_cuda.dp_traceback(dirs, finals, la_t, lb_t, go, ge, seq_t)
+
+    k1_ms = _time_ms(lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go,
+                                                   ge), 50)
+    pair_ms = _time_ms(k1_k2, 50)
+    k2_alone = _time_ms(lambda: gotoh_cuda.dp_traceback(
+        dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50)
+    clusters = gotoh_cuda.cluster_size(b, la_max, lb_max, dev)
+    k1_one = k1_ms if clusters == 1 else _time_ms(
+        lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge, cluster=1),
+        50)
+    times = {"gotoh_dp": (k1_ms, plain_dp),
+             "gotoh_tb": (pair_ms - k1_ms, plain_tb)}
     if variants:
         times.update(_variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t,
                                     dchunk, dirs_g, finals_g, plain_dp,
                                     plain_tb))
+    bounds = _dp_bounds(la.astype(np.int64), lb.astype(np.int64), la_max,
+                        tb_p)
     shape = f"B={b} {la_max}x{lb_max}"
     for name, err in errs.items():
         ms, plain_ms = times[name]
+        bound_ms, bound_by = bounds[name]
         label = f"{shape} dchunk={dchunk}" if "grid" in name else shape
-        stats[name].append((label, err, ms, plain_ms))
+        stats[name].append((label, err, ms, plain_ms, bound_ms, bound_by))
         print(f"  {name:16s} {label:24s} max_abs_err {err}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} "
+              f"ms ({bound_by})")
+    print(f"  {'':16s} {shape:24s} K1 {clusters} CTA(s) per pair "
+          f"{k1_ms:.4f} ms, 1 CTA per pair {k1_one:.4f} ms; K1 + K2 "
+          f"{pair_ms:.4f} ms; K2 alone on warm codes {k2_alone:.4f} ms")
 
 
 def _variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t, dchunk, dirs_g,
@@ -250,10 +321,18 @@ def _matching_phase(b, width, slots, lookahead, seed, dev, stats):
     ms = _time_ms(lambda: matching_cuda.rounds_loop_cuda(*args, lookahead), 20)
     plain_ms = _time_ms(lambda: matching_device.rounds_loop(*args, lookahead),
                         2)
+    # bound: each input read once, each output written once; one subset
+    # evaluation of the 2^lh memo per live column
+    nbytes = sum(x.numel() * x.element_size() for x in args) \
+        + got.score.numel() * 4 + got.used_slot.numel()
+    bound_ms, bound_by = _bound(nbytes,
+                                float(args[3].sum()) * 2 ** lookahead)
     shape = f"B={b} W={width} S={slots} lh={lookahead}"
-    stats["matching_rounds"].append((shape, err, ms, plain_ms))
+    stats["matching_rounds"].append((shape, err, ms, plain_ms, bound_ms,
+                                     bound_by))
     print(f"  {'matching_rounds':16s} {shape:24s} max_abs_err {err}  kernel "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"({bound_by})")
 
 
 def _native_check(name, store, pairs, params, run, library, threads):
@@ -266,9 +345,9 @@ def _native_check(name, store, pairs, params, run, library, threads):
     other."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from bench import _full_depth_ok
-    from lara_tpu.io.writers import OutputLibrary
-    from lara_tpu.native import baseline as native_baseline
+    from lara_tpu_torch.io.writers import OutputLibrary
+    from lara_tpu_torch.native import baseline as native_baseline
+    from lara_tpu_torch.workloads import full_depth_ok
 
     def solve(pair):
         start = time.perf_counter()
@@ -283,7 +362,7 @@ def _native_check(name, store, pairs, params, run, library, threads):
         for nat, seconds in pool.map(solve, pairs):
             pair_seconds += seconds
             dev_res = by_pair[nat.seq_indices]
-            if not _full_depth_ok(dev_res, nat.columns, nat.best_lower,
+            if not full_depth_ok(dev_res, nat.columns, nat.best_lower,
                                   nat.best_upper, nat.iterations):
                 raise AssertionError(f"{name}: pair {nat.seq_indices} "
                                      "differs from the native baseline")
@@ -306,12 +385,11 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     library, wall seconds)."""
     import torch
 
-    from lara_tpu.app import enumerate_pairs, load_input
-    from lara_tpu.io.writers import write_ebpseq
-    from lara_tpu.params import Parameters
-    from lara_tpu.utils import timing
     from lara_tpu_torch import _build, app
+    from lara_tpu_torch.io.writers import write_ebpseq
+    from lara_tpu_torch.params import Parameters
     from lara_tpu_torch.solver import hybrid_driver
+    from lara_tpu_torch.utils import timing
 
     env = env or {}
     name = f"{label} -m {matching}" + "".join(f" {k}={v}"
@@ -341,8 +419,8 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
         raise AssertionError(f"{name}: launched {sorted(launched)}, expected "
                              f"{sorted(expect)} ({launches})")
 
-    store = load_input(params)
-    pairs = enumerate_pairs(store)
+    store = app.load_input(params)
+    pairs = app.enumerate_pairs(store)
     iters = [r.iterations for r in run.results]
     if same_as is not None:
         if library != same_as or len(run.results) != len(pairs):
@@ -476,13 +554,12 @@ def _profile_phase(label, records, dev, n_iter=25):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from lara_tpu.app import enumerate_pairs
-    from lara_tpu.params import Parameters
-    from lara_tpu.solver.device_driver import _pad_dim
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.params import Parameters
     from lara_tpu_torch.solver import device_driver, device_solver
 
     params = Parameters(in_file="<bench>")
-    pad = _pad_dim(max(len(r.sequence) for r in records))
+    pad = device_driver._pad_dim(max(len(r.sequence) for r in records))
     pairs = enumerate_pairs(records)
     models, _ = device_driver._filter_and_build(
         records, pairs, params, pad, pad, dev)
@@ -512,7 +589,7 @@ def _profile_phase(label, records, dev, n_iter=25):
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     ours = {name: sum(e.self_device_time_total for e in device
                       if f"{name}_kernel" in e.key) / n_iter
-            for name in ("dp_forward", "dp_traceback", "matching_rounds")}
+            for name in ("dp_wave", "dp_walk", "matching_rounds")}
     print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations: "
           f"{wall_ms / n_iter:.3f} ms/iteration unprofiled, device busy "
           f"{busy_ms / n_iter:.3f} ms/iteration ({busy_ms / wall_ms:.1%}), "
@@ -530,8 +607,8 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from bench import make_family, make_long_family
     from lara_tpu_torch import _build
+    from lara_tpu_torch.workloads import make_family, make_long_family
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -547,8 +624,8 @@ def main() -> int:
           f" s, load {time.perf_counter() - start:.1f} s)")
     # the native host libraries build with g++ at first use; build them
     # here, as the kernels above, so that no timed run pays for a build
-    from lara_tpu.native import baseline as native_baseline, lagrange
-    from lara_tpu.solver import interactions
+    from lara_tpu_torch.native import baseline as native_baseline, lagrange
+    from lara_tpu_torch.solver import interactions
 
     start = time.perf_counter()
     native_baseline._load()
@@ -565,6 +642,8 @@ def main() -> int:
     # the 16S chunk: K1 with 55 KB of opt-in shared memory, K2's walk of
     # up to 3072 steps (K-res does not fit, the grid kernels are off path)
     _dp_phase(32, 1536, 1536, 3, dev, stats, variants=False)
+    # ragged and non-square: la_max not a multiple of 32, 32 < B < 132
+    _dp_phase(40, 333, 700, 4, dev, stats, variants=False)
     # K3 first at the main path's shapes (the tRNA and ~300 nt chunks have
     # D=1024 dual entries, so W=512 queue columns, the 16S chunk D=3072, so
     # W=1536; S=LA line slots), then the fuzz widths at every lookahead
@@ -622,17 +701,25 @@ def main() -> int:
     for label, records in (trna, rrna):
         _profile_phase(label, records, dev)
     _profile_phase(*long16, dev)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    foreign = sorted(m for m in sys.modules
+                     if m in ("jax", "lara_tpu", "bench")
+                     or m.startswith(("jax.", "lara_tpu.")))
+    if foreign:
+        raise AssertionError(f"the port loaded {foreign[:5]}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        _shape, _err, ms, plain_ms = stats[name][0]  # the main path's shape
+        # the first shape is the main path's (the tRNA chunk's)
+        shape, _err, ms, plain_ms, bound_ms, bound_by = stats[name][0]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(e for _, e, _, _ in stats[name]),
-            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6)}
+            "max_abs_err": max(s[1] for s in stats[name]),
+            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+            # no PyTorch call computes an affine-gap DP, its traceback or
+            # the greedy lookahead matching
+            "library_ms": None, "shape": shape}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)

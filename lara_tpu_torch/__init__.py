@@ -6,9 +6,10 @@ PyTorch, the hybrid backend (device DP + native host bookkeeping) for the
 host-matching modes, and hand-written CUDA kernels for Hopper (``csrc/``):
 the forward wavefront DP (K1), its traceback (K2), the greedy lookahead
 matching (K3), and the grid-stepped (K1-grid, K2-grid) and resident (K-res)
-layouts of the DP.  Host code that imports no JAX (input, output,
-interaction models, the scalar mirror, the native bookkeeping) is imported
-from ``lara_tpu``.  This package imports ``torch`` and never ``jax``.
+layouts of the DP.  The host code (input, output, interaction models,
+the scalar mirror, the native bookkeeping) is the port's own copy of the
+JAX package's, under the same module names.  This package imports
+``torch``, never ``jax`` and nothing of ``lara_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -4,10 +4,10 @@ Every ``csrc/*.cu`` compiles with ``nvcc`` (sm_90a), one process per source
 started together, and the objects link into one shared library with a
 plain C interface under ``_build/``, at first use and again whenever a
 source (``*.cu`` or ``*.cuh``) is newer than the library (the scheme of
-:func:`lara_tpu.native.shared_library`).  ``ctypes`` binds it: pointers and
-the CUDA stream go over as ``c_void_p``, every entry point returns its
-``cudaGetLastError()``, and :func:`check` raises on anything but 0.  A
-failed build raises; nothing falls back to another path.
+:func:`lara_tpu_torch.native.shared_library`).  ``ctypes`` binds it:
+pointers and the CUDA stream go over as ``c_void_p``, every entry point
+returns its ``cudaGetLastError()``, and :func:`check` raises on anything
+but 0.  A failed build raises; nothing falls back to another path.
 
 ``launches`` counts kernel launches per kernel: each wrapper calls
 :func:`count` where it launches its kernel, and nowhere else (the driver's
@@ -138,7 +138,7 @@ def library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lara_gotoh_dp.restype = i32
         lib.lara_gotoh_dp.argtypes = [
-            ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.lara_gotoh_tb.restype = i32
         lib.lara_gotoh_tb.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]

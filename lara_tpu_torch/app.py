@@ -1,25 +1,53 @@
 """Whole-program flow of the port: read inputs -> solve all pairs -> write
 the library (``/root/reference/src/lara.cpp:44-61``).
 
-Counterpart of :func:`lara_tpu.app.run` on one device.  Input reading, pair
-enumeration, the output writers, the scalar mirror and the multiple
-alignment are the JAX package's host code, which imports no JAX.
+Counterpart of :func:`lara_tpu.app.run` on one device.  Pair enumeration
+mirrors ``solve`` (``subgradient_solver.hpp:112-120``): every unordered pair
+of input records, with the longer sequence first (ties keep the original
+index order, per the ``>=`` comparison).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
-from lara_tpu.app import enumerate_pairs, load_input
-from lara_tpu.io.writers import OutputLibrary
-from lara_tpu.params import Parameters
-from lara_tpu.solver.reference_driver import PairResult
-from lara_tpu.utils import log, timing
 from lara_tpu_torch._device import resolve_device
-from lara_tpu_torch.utils.timing import maybe_trace
+from lara_tpu_torch.io.records import InputStorage
+from lara_tpu_torch.io.writers import OutputLibrary
+from lara_tpu_torch.params import Parameters
+from lara_tpu_torch.solver.reference_driver import PairResult
+from lara_tpu_torch.utils import log, timing
+
+
+def enumerate_pairs(store) -> List[Tuple[int, int]]:
+    """All index pairs, longer sequence first; processed longest-first
+    (the reference's length-sorted work queue, ``io.hpp:352-365``)."""
+    pairs = []
+    for idx_a in range(len(store) - 1):
+        for idx_b in range(idx_a + 1, len(store)):
+            if len(store[idx_a].sequence) >= len(store[idx_b].sequence):
+                pairs.append((idx_a, idx_b))
+            else:
+                pairs.append((idx_b, idx_a))
+    pairs.sort(key=lambda p: (-len(store[p[0]].sequence),
+                              -len(store[p[1]].sequence)))
+    return pairs
+
+
+def load_input(params: Parameters) -> InputStorage:
+    log(1, "2) Read input files...")
+    return InputStorage(
+        in_file=params.in_file,
+        ref_file=params.ref_file,
+        dotplot_files=params.dotplot_files,
+        structure_scoring=params.structure_scoring,
+        out_format=params.out_format,
+        predict_structures=params.predict,
+        threads=int(params.threads),
+    )
 
 
 class Run(NamedTuple):
@@ -45,7 +73,7 @@ def run(params: Parameters, device: torch.device = None) -> Run:
     log(1, f"3) Solve {len(pairs)} structural alignments...")
 
     if params.backend == "reference":
-        from lara_tpu.solver import reference_driver
+        from lara_tpu_torch.solver import reference_driver
 
         solved = (reference_driver.solve_pair(store[ia], store[ib], params,
                                               (ia, ib))
@@ -55,7 +83,7 @@ def run(params: Parameters, device: torch.device = None) -> Run:
 
         solved = device_driver.solve_all(store, pairs, params, device)
     results = []
-    with maybe_trace(), timing.phase("solve"):
+    with timing.maybe_trace(), timing.phase("solve"):
         for result in solved:
             outlib.add_alignment(result.seq_indices, result.columns,
                                  result.score)
@@ -70,7 +98,7 @@ def run(params: Parameters, device: torch.device = None) -> Run:
             outlib.print(params.out_file if params.out_file else None)
 
     if params.msa_file and not params.prewarm:
-        from lara_tpu import msa as msa_mod
+        from lara_tpu_torch import msa as msa_mod
 
         log(1, "5) Assemble multiple alignment...")
         with timing.phase("assemble MSA"):

@@ -5,9 +5,9 @@ from __future__ import annotations
 
 import sys
 
-from lara_tpu.io.records import LaraInputError
-from lara_tpu.native import NativeBuildError
-from lara_tpu.params import parse_args
+from lara_tpu_torch.io.records import LaraInputError
+from lara_tpu_torch.native import NativeBuildError
+from lara_tpu_torch.params import parse_args
 
 
 def main(argv=None) -> int:

@@ -1,41 +1,104 @@
 // K1 and K2 of the port: the forward affine-Gotoh wavefront and its
 // traceback, hand-written for Hopper (sm_90a).
 //
-// K1 replaces lara_tpu/ops/gotoh_pallas.py::_make_stream_kernel; K2 replaces
-// gotoh_pallas.py::_make_tb_stream_kernel.  (The TPU's grid-stepped and
-// resident layouts of the same functions have their own kernels in
-// gotoh_grid.cu and gotoh_resident.cu.)  The plain versions are
+// K1 (dp_wave_kernel) replaces lara_tpu/ops/gotoh_pallas.py:253
+// (_make_stream_kernel); K2 (dp_walk_kernel) replaces gotoh_pallas.py:366
+// (_make_tb_stream_kernel).  The TPU's grid-stepped and resident layouts of
+// the same functions have their own kernels in gotoh_grid.cu and
+// gotoh_resident.cu.  The plain versions are
 // lara_tpu_torch/ops/gotoh.py::dp_forward and ::dp_traceback.
 //
-// What bounds them on this card.  K1 is a chain of la+lb+1 dependent
-// anti-diagonal steps per pair, each O(la) integer max/compare work, reading
-// 4 bytes of score and writing 1 direction byte per cell (a few MB per call
-// at the bench shapes): it is bound by the latency of the dependent steps,
-// not by bytes or operations.  So each pair gets one CTA whose threads stride
-// over the diagonal offsets i; the M/H/V rows of diagonals d-1 and d-2 stay
-// in shared memory as three rotating rows per state, which needs only one
-// __syncthreads() per diagonal.  The TPU's pre-skewed score streams are an
-// index map here: cell (i, d-i) reads pssm[b, i-1, d-i-1].  A lane's sweep
-// stops at diagonal la+lb and offset la: no valid cell depends on anything
-// beyond them.
+// K1: what bounds it.  A pair is a chain of la+lb+1 dependent anti-diagonals
+// of about 20 integer operations per cell, reading a 4-byte score and
+// writing a 1-byte code per cell: bytes bound it at ~0.14 ms for a full
+// 16S chunk (B=32, 1536x1536), but what it meets first is the chain itself
+// (la+lb+1 steps, each a shuffle and a few dozen dependent instructions)
+// and the integer issue rate of the SMs that hold the pairs: an SM issues
+// 64 integer lanes per clock, two warp instructions, so every instruction
+// of a warp step counts.  A block barrier per diagonal and a score load on
+// every diagonal's dependent chain (the first port of this kernel, one CTA
+// per pair) cost 4.2 ms there.  The design:
+//   * rows in registers: a warp owns a strip of 32 rows, one per lane, and
+//     lane t runs one column behind lane t-1.  It takes the up cell from
+//     lane t-1 by __shfl_up_sync, keeps the up-left cell from its previous
+//     step and its own row's left cell in registers: a step is a shuffle
+//     and a few dozen ALU instructions, with no barrier;
+//   * strips across warps: the last lane of strip k hands its row to strip
+//     k+1 through a ring of tagged cells in the consumer's shared memory
+//     (below); the consumer polls eight cells at a time, and the producer
+//     checks the consumer's count before it overwrites a slot.  The whole
+//     warp polls, so that it never diverges around its shuffles: a warp
+//     whose lane 0 alone spun ran its steps 5x slower on the card.  Strip k
+//     runs on CTA k % C of the pair's cluster, warp (k / C) % nw; a warp
+//     takes strips k, k + C*nw, ... until la is covered;
+//   * scores staged ahead: each lane copies its own score row into shared
+//     memory by cp.async, 32 columns at a time into a ring of three chunks,
+//     one chunk ahead of the sweep; no score load sits on the chain;
+//   * coalesced code stores: at warp step s lane t writes cell
+//     (base+t, s-t) on diagonal base+s, so a step is one 32-byte store into
+//     dirs[b, base+s, base:base+32];
+//   * a short step: only the first 32 steps of a strip (and strip 0) test
+//     for row 0 and column 0, lane 31 writes the ring once per block of
+//     eight steps, and the ring is polled without branches;
+//   * filling the card: a cluster of C CTAs per pair (C from B and the SM
+//     count, in the wrapper: 4 at B=32 on 132 SMs), the ring written into
+//     distributed shared memory where producer and consumer sit on
+//     different CTAs.
+// Cells left of column 0 (j < 0) hold values that depend only on the
+// diagonal, never on the scores; they reach a valid cell only through the
+// M and H direction codes of the left border (i, 0).  The wrapper computes
+// those two codes for every i once per (go, ge, W) on the host and passes
+// them in (border), so the sweep starts at column 0.
 //
-// K2 walks one pointer chain per pair, la+lb dependent one-byte loads: pure
-// latency.  One warp per pair clears the partner row, then one thread walks
-// it as lara_tpu/ops/gotoh.py::traceback does; the TPU kernel's reverse
-// sweep over every diagonal is not needed on a machine with scalar loads.
+// K2: what bounds it.  The walk from (la, lb) back to (0, 0) is la+lb
+// dependent steps of one code byte each: latency.  One thread walking global
+// memory (the first port) paid a memory round trip per step, 1.1 ms at 16S
+// inside an iteration, where K1 has just pushed the codes out of L2.  The
+// design: one warp per pair copies a window of 128 diagonals x 64 offsets
+// around the walk into shared memory by cp.async;
+// lane 0 walks 32 steps inside it (any 64 steps from the window's anchor
+// stay inside: a step lowers d by 1 or 2 and i by 0 or 1), while the next
+// window, anchored where the walk stands at the switch, is in flight.  The
+// seq-score sum comes off the chain: after the walk the warp sums
+// seq[b, i, partner[i]] over the matched rows (uint32 adds commute).
 //
-// int32 sums wrap exactly as XLA's do: cells outside a lane's rectangle add
-// the NEG_INF sentinel to itself.  Signed overflow is undefined in C++, so
-// every add goes through uint32_t.
+// int32 sums wrap exactly as XLA's do: every add goes through uint32_t
+// (signed overflow is undefined in C++), and the NEG_INF sentinel adds to
+// itself outside a lane's rectangle as it does there.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kNegInf = -1431655764;  // PSSM_INIT == NEG_INF
 constexpr int kMat = 0, kHor = 1, kVer = 2;
 constexpr int kMaxSmem = 227 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+// K1 shared memory, per warp: a score ring of three 32-column chunks for
+// each of its 32 rows, then its input ring of kRing (M, H, V) cells, each
+// value in a 64-bit word beside a tag (the cell's index + 1): one aligned
+// 64-bit store is seen whole or not at all, so the consumer polls the tags
+// and no fence orders the ring against the code stores in flight (a
+// release per handoff cost more than the sweep itself).
+constexpr int kTileCols = 96;
+constexpr int kRing = 88;
+constexpr int kSub = 8;  // steps between ring reads and checks
+constexpr int kMaxWarps = 16;
+constexpr int kWarpInts = 32 * kTileCols + 6 * kRing;
+
+// K2 window: kWinRows diagonals x 64 offsets, each diagonal's 64 bytes
+// inside the five 16-byte blocks that hold them (80 bytes).
+constexpr int kWinRows = 128;
+constexpr int kWinBytes = 80;
+constexpr int kSeg = 32;  // steps walked per window
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -45,152 +108,454 @@ __device__ __forceinline__ int wmul(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
 }
 
-// One CTA per lane.  Shared memory: M, H, V rows, each three rings of W ints
-// (ring d % 3 holds diagonal d).
-__global__ void dp_forward_kernel(const int* __restrict__ pssm,
-                                  const int* __restrict__ la_arr,
-                                  const int* __restrict__ lb_arr, int batch,
-                                  int la_max, int lb_max, int go, int ge,
-                                  int8_t* __restrict__ dirs,
-                                  int* __restrict__ finals) {
-  extern __shared__ int smem[];
-  const int b = blockIdx.x;
-  const int W = la_max + 1;
-  const int D = la_max + lb_max + 1;
-  const int la = la_arr[b];
-  const int lb = lb_arr[b];
-  const int d_end = la + lb;
-  int* M = smem;
-  int* H = smem + 3 * W;
-  int* V = smem + 6 * W;
-  for (int k = threadIdx.x; k < 3 * W; k += blockDim.x) {
-    M[k] = kNegInf;
-    H[k] = kNegInf;
-    V[k] = kNegInf;
-  }
-  __syncthreads();
-
-  const int* P = pssm + static_cast<size_t>(b) * la_max * lb_max;
-  int8_t* out = dirs + static_cast<size_t>(b) * D * W;
-  for (int d = 0; d <= d_end; ++d) {
-    const int r0 = (d % 3) * W;        // diagonal d
-    const int r1 = ((d + 2) % 3) * W;  // diagonal d-1
-    const int r2 = ((d + 1) % 3) * W;  // diagonal d-2
-    const int bg = d == 0 ? 0 : wadd(go, wmul(ge, d - 1));
-    const int edge_gap = d == 0 ? kNegInf : bg;
-    for (int i = threadIdx.x; i <= la; i += blockDim.x) {
-      const int j = d - i;
-      int m2s = kNegInf, h2s = kNegInf, v2s = kNegInf;
-      int m1s = kNegInf, h1s = kNegInf, v1s = kNegInf;
-      if (i > 0) {
-        m2s = M[r2 + i - 1];
-        h2s = H[r2 + i - 1];
-        v2s = V[r2 + i - 1];
-        m1s = M[r1 + i - 1];
-        h1s = H[r1 + i - 1];
-        v1s = V[r1 + i - 1];
-      }
-      const int t = (i >= 1 && j >= 1 && j <= lb_max)
-                        ? P[(i - 1) * lb_max + (j - 1)]
-                        : kNegInf;
-
-      // M from (i-1, j-1) on d-2; ties M > H > V
-      const int best = max(max(m2s, h2s), v2s);
-      int m_new = wadd(best, t);
-      const int mdir = m2s == best ? kMat : (h2s == best ? kHor : kVer);
-
-      // H from (i, j-1) on d-1; ties ext > M > V
-      const int m1 = M[r1 + i], h1 = H[r1 + i], v1 = V[r1 + i];
-      const int hh = wadd(h1, ge), hm = wadd(m1, go), hv = wadd(v1, go);
-      int h_new = max(max(hh, hm), hv);
-      const int hdir = hh == h_new ? kHor : (hm == h_new ? kMat : kVer);
-
-      // V from (i-1, j) on d-1; ties ext > M > H
-      const int vv = wadd(v1s, ge), vm = wadd(m1s, go), vh = wadd(h1s, go);
-      int v_new = max(max(vv, vm), vh);
-      const int vdir = vv == v_new ? kVer : (vm == v_new ? kMat : kHor);
-
-      // borders: cell (0, d) and cell (d, 0)
-      const bool top = i == 0, left = i == d;
-      if (top || left) m_new = bg;
-      if (top) {
-        h_new = edge_gap;
-        v_new = kNegInf;
-      } else if (left) {
-        h_new = kNegInf;
-      }
-      if (left) v_new = edge_gap;
-
-      M[r0 + i] = m_new;
-      H[r0 + i] = h_new;
-      V[r0 + i] = v_new;
-      out[static_cast<size_t>(d) * W + i] =
-          static_cast<int8_t>(mdir | (hdir << 2) | (vdir << 4));
-      if (d == d_end && i == la) {
-        finals[b] = m_new;
-        finals[batch + b] = h_new;
-        finals[2 * batch + b] = v_new;
-      }
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
 }
 
-// One warp per lane: the warp clears the lane's partner row, then its first
-// thread walks the direction codes from (la, lb) back to (0, 0).
-__global__ void dp_traceback_kernel(const int8_t* __restrict__ dirs,
-                                    const int* __restrict__ finals,
-                                    const int* __restrict__ la_arr,
-                                    const int* __restrict__ lb_arr,
-                                    const int* __restrict__ seq, int batch,
-                                    int la_max, int lb_max, int go, int ge,
-                                    int* __restrict__ partner,
-                                    int* __restrict__ scalars) {
-  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (b >= batch) return;
-  int* row = partner + static_cast<size_t>(b) * la_max;
-  for (int a = lane; a < la_max; a += 32) row[a] = -1;
-  __syncwarp();
-  if (lane != 0) return;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The ring and the consumed counts live in the consumer's and the
+// producer's shared memory: a thread polls only its own CTA's shared memory
+// (volatile loads) and stores into a neighbour's through distributed
+// shared memory (relaxed stores at cluster scope, to generic addresses
+// mapped once per strip).  The tags carry the ordering, so no fence waits
+// for the code stores in flight.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned long long poll64(unsigned a) {
+  unsigned long long v;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];\n" : "=l"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ int poll32(unsigned a) {
+  int v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void put64(unsigned long long* p,
+                                      unsigned long long v) {
+  asm volatile("st.relaxed.cluster.u64 [%0], %1;\n" ::"l"(p), "l"(v));
+}
+
+__device__ __forceinline__ void put32(int* p, int v) {
+  asm volatile("st.relaxed.cluster.u32 [%0], %1;\n" ::"l"(p), "r"(v));
+}
+
+__device__ __forceinline__ unsigned long long tagged(int tag, int value) {
+  return (static_cast<unsigned long long>(static_cast<uint32_t>(tag)) << 32) |
+         static_cast<uint32_t>(value);
+}
+
+__device__ __forceinline__ bool has_tag(unsigned long long w, int tag) {
+  return static_cast<int>(w >> 32) == tag;
+}
+
+// Lane 0's up cells for the kSub columns from ring slot ``slot`` on, the
+// first one tagged ``tag``: true when the ``need`` of them are all there.
+// Every slot is read and the tags are and-ed without a branch: the loop is
+// on the chain of every strip but the first.
+__device__ __forceinline__ bool read_ring(unsigned ring_at, int slot, int tag,
+                                          int need, int* rm, int* rh,
+                                          int* rv) {
+  bool ready = true;
+#pragma unroll
+  for (int u = 0; u < kSub; ++u) {
+    const int sl = slot + u < kRing ? slot + u : slot + u - kRing;
+    const unsigned long long w0 = poll64(ring_at + 24 * sl);
+    const unsigned long long w1 = poll64(ring_at + 24 * sl + 8);
+    const unsigned long long w2 = poll64(ring_at + 24 * sl + 16);
+    const bool here = has_tag(w0, tag + u) & has_tag(w1, tag + u) &
+                      has_tag(w2, tag + u);
+    ready = ready & (here | (u >= need));
+    rm[u] = static_cast<int>(w0);
+    rh[u] = static_cast<int>(w1);
+    rv[u] = static_cast<int>(w2);
+  }
+  return ready;
+}
+
+// One step of the wavefront for one lane: the cell (i, j) from its diagonal
+// (dm, dh, dv), left (cm, ch, cv) and up (um, uh, uv) neighbours; returns
+// the packed code and updates (cm, ch, cv) to the new cell.  Only an
+// ``kEdge`` step may meet row 0 or column 0.
+template <bool kEdge>
+__device__ __forceinline__ int wave_cell(int i, int j, int sc, int dm, int dh,
+                                         int dv, int& cm, int& ch, int& cv,
+                                         int um, int uh, int uv, int go,
+                                         int ge, int border_code) {
+  // M from (i-1, j-1); ties M > H > V
+  const int best = max(max(dm, dh), dv);
+  int mn = wadd(best, sc);
+  const int mdir = dm == best ? kMat : (dh == best ? kHor : kVer);
+  // H from (i, j-1); ties ext > M > V
+  const int hh = wadd(ch, ge), hm = wadd(cm, go), hv = wadd(cv, go);
+  int hn = max(max(hh, hm), hv);
+  const int hdir = hh == hn ? kHor : (hm == hn ? kMat : kVer);
+  // V from (i-1, j); ties ext > M > H
+  const int vv = wadd(uv, ge), vm = wadd(um, go), vh = wadd(uh, go);
+  int vn = max(max(vv, vm), vh);
+  const int vdir = vv == vn ? kVer : (vm == vn ? kMat : kHor);
+  int mh = mdir | (hdir << 2);
+  if constexpr (kEdge) {
+    // borders: cell (0, j) and cell (i, 0); (0, 0) is (0, NEG, NEG)
+    if (i == 0) {
+      const int bg = j == 0 ? 0 : wadd(go, wmul(ge, j - 1));
+      mn = bg;
+      hn = j == 0 ? kNegInf : bg;
+      vn = kNegInf;
+    }
+    if (j == 0) {
+      const int bg = i == 0 ? 0 : wadd(go, wmul(ge, i - 1));
+      mn = bg;
+      hn = kNegInf;
+      vn = i == 0 ? kNegInf : bg;
+      mh = border_code;
+    }
+  }
+  cm = mn;
+  ch = hn;
+  cv = vn;
+  return mh | (vdir << 4);
+}
+
+// Grid: batch * C CTAs in clusters of C (one cluster per pair), nw warps
+// each.  Shared memory: nw * kWarpInts ints, then cons[nw]: the cells
+// consumed from the ring that warp w feeds (written by its consumer).
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    dp_wave_kernel(const int* __restrict__ pssm, const int* __restrict__ la_arr,
+                   const int* __restrict__ lb_arr,
+                   const int8_t* __restrict__ border, int la_max, int lb_max,
+                   int go, int ge, int nw, int batch, int vec16,
+                   int8_t* __restrict__ dirs, int* __restrict__ finals) {
+  extern __shared__ __align__(16) int smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* tile = smem + warp * kWarpInts + lane * kTileCols;
+  unsigned long long* ring = reinterpret_cast<unsigned long long*>(
+      smem + warp * kWarpInts + 32 * kTileCols);
+  int* cons = smem + nw * kWarpInts;
+  for (int x = lane; x < 3 * kRing; x += 32) ring[x] = 0;  // no tag is 0
+  if (threadIdx.x < nw) cons[threadIdx.x] = 0;
+  cluster.sync();
 
   const int W = la_max + 1;
+  const int la = la_arr[b];
+  const int lb = lb_arr[b];
+  const int ncol = lb + 1;
+  const int nstrips = (la + 32) / 32;  // rows 0..la
+  const int P = C * nw;
+  const int* P_b = pssm + static_cast<size_t>(b) * la_max * lb_max;
+  int8_t* out_b = dirs + static_cast<size_t>(b) * (la_max + lb_max + 1) * W;
+
+  for (int k = rank + C * warp; k < nstrips; k += P) {
+    const int base = 32 * k;
+    const int i = base + lane;
+    const bool has_up = k > 0;
+    const bool has_down = k + 1 < nstrips;
+    // cell index of column 0 in the ring between strips k-1 and k, and in
+    // the one between k and k+1 (monotonic over a warp's strips)
+    const int e_in = has_up ? (k - 1) / P * ncol : 0;
+    const int e_out = k / P * ncol;
+    // the consumer of this strip's last row: strip k+1
+    const int c_rank = (k + 1) % C, c_warp = ((k + 1) / C) % nw;
+    unsigned long long* out_ring = cluster.map_shared_rank(
+        reinterpret_cast<unsigned long long*>(smem + c_warp * kWarpInts +
+                                              32 * kTileCols),
+        c_rank);
+    // the producer of row base-1: strip k-1
+    const int p_rank = (k + C - 1) % C;
+    const int p_warp = has_up ? ((k - 1) / C) % nw : 0;
+    int* in_cons = cluster.map_shared_rank(cons + p_warp, p_rank);
+    const unsigned ring_at = smem_addr(ring), cons_at = smem_addr(cons + warp);
+
+    // score row i-1, columns [32c, 32c+32) into chunk slot c % 3
+    const bool row_ok = i >= 1 && i <= la;
+    const int* src_row = P_b + static_cast<size_t>(i - 1) * lb_max;
+    auto load_chunk = [&](int c) {
+      const int c0 = 32 * c;
+      if (row_ok && c0 < lb) {
+        int* dst = tile + (c % 3) * 32;
+        const int n = min(32, lb - c0);
+        if (vec16) {
+          for (int x = 0; x < n; x += 4) cp_async16(dst + x, src_row + c0 + x);
+        } else {
+          for (int x = 0; x < n; ++x) cp_async4(dst + x, src_row + c0 + x);
+        }
+      }
+      cp_async_commit();
+    };
+    load_chunk(0);
+
+    int cm = kNegInf, ch = kNegInf, cv = kNegInf;  // (i, j-1)
+    int dm = kNegInf, dh = kNegInf, dv = kNegInf;  // (i-1, j-1)
+    int ci = kTileCols - 1 - lane;                 // (j-1) mod 96
+    const int bcode = i <= la ? border[i] : 0;
+    const bool row_valid = i <= la;
+    // code of cell (i, j) at out_b[(i + j) * W + i]; j = s - lane
+    int8_t* outp = out_b + static_cast<size_t>(base) * W + i;
+    int in_slot = e_in % kRing, out_slot = e_out % kRing;
+    int cons_seen = -kRing;  // the consumer's count, last read
+    // the step at which this lane meets cell (la, lb), and the last column
+    // it stores (none outside rows 0 .. la)
+    const int fin_s = i == la ? lb + lane : -1;
+    const int j_hi = row_valid ? lb : -1;
+    const int nsteps = lb + 32;
+    for (int s0 = 0; s0 < nsteps; s0 += kSub) {
+      if ((s0 & 31) == 0) {
+        load_chunk((s0 >> 5) + 1);
+        cp_async_wait<1>();
+      }
+      // the up cells of lane 0's columns s0 .. s0+kSub-1, from the ring: every
+      // lane reads them (one broadcast load each), so the warp polls and
+      // waits as one and never diverges around its shuffles
+      int rm[kSub], rh[kSub], rv[kSub];
+      const bool take = has_up && s0 <= lb;
+      if (take) {
+        const int need = min(kSub, lb + 1 - s0);
+        while (!read_ring(ring_at, in_slot, e_in + s0 + 1, need, rm, rh, rv)) {
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kSub; ++u) rm[u] = rh[u] = rv[u] = kNegInf;
+      }
+      // room in the consumer's ring for this block's cells of row base+31
+      const int out_last = min(s0 + kSub - 1 - 31, lb);
+      if (has_down && out_last >= 0) {
+        const int room = e_out + out_last + 1 - kRing;
+        while (cons_seen < room) cons_seen = poll32(cons_at);
+      }
+      // lane 31's cells of this block, for the consumer's ring
+      int km[kSub], kh[kSub], kv[kSub];
+      auto block = [&](auto edge) {
+        constexpr bool kEdge = decltype(edge)::value;
+#pragma unroll
+        for (int u = 0; u < kSub; ++u) {
+          const int s = s0 + u;
+          const int j = s - lane;
+          int um = __shfl_up_sync(kFull, cm, 1);
+          int uh = __shfl_up_sync(kFull, ch, 1);
+          int uv = __shfl_up_sync(kFull, cv, 1);
+          if (lane == 0) {
+            um = rm[u];
+            uh = rh[u];
+            uv = rv[u];
+          }
+          const int sc = tile[ci];
+          ci = ci == kTileCols - 1 ? 0 : ci + 1;
+          const int code = wave_cell<kEdge>(i, j, sc, dm, dh, dv, cm, ch, cv,
+                                            um, uh, uv, go, ge, bcode);
+          dm = um;
+          dh = uh;
+          dv = uv;
+          km[u] = cm;
+          kh[u] = ch;
+          kv[u] = cv;
+          // past the first 32 steps j >= 1
+          const bool store = kEdge ? row_valid && static_cast<unsigned>(j) <=
+                                                      static_cast<unsigned>(lb)
+                                   : j <= j_hi;
+          if (store) *outp = static_cast<int8_t>(code);
+          if (s == fin_s) {
+            finals[b] = cm;
+            finals[batch + b] = ch;
+            finals[2 * batch + b] = cv;
+          }
+          outp += W;
+        }
+      };
+      // only the first 32 steps of a strip meet column 0, only strip 0
+      // meets row 0
+      if (s0 < 32 || k == 0) {
+        block(std::true_type());
+      } else {
+        block(std::false_type());
+      }
+      if (has_down && lane == 31) {
+        auto put = [&](int u) {
+          const int tag = e_out + s0 + u - 31 + 1;
+          put64(out_ring + 3 * out_slot, tagged(tag, km[u]));
+          put64(out_ring + 3 * out_slot + 1, tagged(tag, kh[u]));
+          put64(out_ring + 3 * out_slot + 2, tagged(tag, kv[u]));
+          out_slot = out_slot + 1 == kRing ? 0 : out_slot + 1;
+        };
+        // columns s0-31 .. s0-32+kSub: all inside [0, lb] but at the ends
+        if (s0 >= 32 && s0 + kSub - 32 <= lb) {
+#pragma unroll
+          for (int u = 0; u < kSub; ++u) put(u);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kSub; ++u) {
+            const int j = s0 + u - 31;
+            if (j >= 0 && j <= lb) put(u);
+          }
+        }
+      }
+      if (take) {
+        if (lane == 0) put32(in_cons, e_in + min(s0 + kSub, ncol));
+        in_slot = in_slot + kSub >= kRing ? in_slot + kSub - kRing
+                                          : in_slot + kSub;
+      }
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+  }
+  // no CTA may leave while a neighbour still writes into its shared memory
+  cluster.sync();
+}
+
+// One warp per pair.  Shared memory: two windows of kWinRows x kWinBytes.
+// Window anchored at (da, ia): diagonals da-127 .. da, offsets ia-63 .. ia;
+// diagonal da-r starts at byte ((K - r*W) & 15) of its 80-byte row, K =
+// the byte index of (da, ia-63) in dirs.
+__global__ void __launch_bounds__(32)
+    dp_walk_kernel(const int8_t* __restrict__ dirs,
+                   const int* __restrict__ finals,
+                   const int* __restrict__ la_arr,
+                   const int* __restrict__ lb_arr,
+                   const int* __restrict__ seq, int batch, int la_max,
+                   int lb_max, int go, int ge, int* __restrict__ partner,
+                   int* __restrict__ scalars) {
+  __shared__ __align__(16) uint8_t win[2][kWinRows * kWinBytes];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int W = la_max + 1;
   const int D = la_max + lb_max + 1;
-  const int8_t* code_of = dirs + static_cast<size_t>(b) * D * W;
-  const int* seq_of = seq + static_cast<size_t>(b) * la_max * lb_max;
+  const long long total_bytes = static_cast<long long>(batch) * D * W;
+  int* row = partner + static_cast<size_t>(b) * la_max;
+  for (int a = lane; a < la_max; a += 32) row[a] = -1;
+
+  const long long lane_base = static_cast<long long>(b) * D * W;
+  // copy the window anchored at (da, ia) into buffer w: lane t takes the
+  // diagonals da-t, da-t-32, da-t-64, da-t-96
+  auto load_window = [&](int w, int da, int ia) {
+#pragma unroll
+    for (int q = 0; q < kWinRows / 32; ++q) {
+      const int r = lane + 32 * q;
+      if (da - r < 0) continue;
+      const long long g =
+          lane_base + static_cast<long long>(da - r) * W + ia - 63;
+      const long long a0 = g & ~15LL;
+#pragma unroll
+      for (int x = 0; x < kWinBytes / 16; ++x) {
+        const long long a = a0 + 16 * x;
+        if (a >= 0 && a < total_bytes) {
+          cp_async16(&win[w][r * kWinBytes + 16 * x], dirs + a);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
   const int fm = finals[b], fh = finals[batch + b], fv = finals[2 * batch + b];
   const int upper = max(max(fm, fh), fv);
   int state = fm == upper ? kMat : (fh == upper ? kHor : kVer);
   int i = la_arr[b];
   int j = lb_arr[b];
-  int gap = 0, cnt = 0, seq_sum = 0;
+  int gap = 0, cnt = 0;
+  int cur = 0;
+  int da = i + j, ia = i;  // anchor of the window in buffer cur
+  load_window(cur, da, ia);
+  cp_async_wait<0>();
+  __syncwarp();
+  // Segment n walks steps 32n .. 32n+31 in the window anchored at step
+  // 32(n-1) (segment 0 in the one anchored at step 0), while the window
+  // anchored at step 32n is copied for segment n+1.
+  bool first = true;
   while (i > 0 || j > 0) {
-    if (i == 0) {
-      state = kHor;
-    } else if (j == 0) {
-      state = kVer;
+    const int nda = i + j, nia = i;
+    if (!first) load_window(cur ^ 1, nda, nia);
+    if (lane == 0) {
+      const uint8_t* wb = win[cur];
+      const long long k0 =
+          lane_base + static_cast<long long>(da) * W + ia - 63;
+      const int kmod = static_cast<int>(k0 & 15);
+      const int wmod = W & 15;
+      for (int n = 0; n < kSeg && (i > 0 || j > 0); ++n) {
+        if (i == 0) {
+          state = kHor;
+        } else if (j == 0) {
+          state = kVer;
+        }
+        const int r = da - (i + j);
+        const int off = (kmod - r * wmod) & 15;
+        const int code = wb[r * kWinBytes + off + i - ia + 63];
+        const int pred = (code >> (2 * state)) & 3;
+        if (state == kMat) {
+          row[i - 1] = j - 1;
+          ++cnt;
+        } else {
+          gap = wadd(gap, pred == state ? ge : go);
+        }
+        if (state != kHor) --i;
+        if (state != kVer) --j;
+        state = pred;
+      }
     }
-    const int code = code_of[static_cast<size_t>(i + j) * W + i];
-    const int pred = state == kMat   ? (code & 3)
-                     : state == kHor ? ((code >> 2) & 3)
-                                     : ((code >> 4) & 3);
-    if (state == kMat) {
-      row[i - 1] = j - 1;
-      ++cnt;
-      seq_sum = wadd(seq_sum, seq_of[(i - 1) * lb_max + (j - 1)]);
-    } else if (state == kHor) {
-      gap = wadd(gap, pred == kHor ? ge : go);
-    } else {
-      gap = wadd(gap, pred == kVer ? ge : go);
+    i = __shfl_sync(kFull, i, 0);
+    j = __shfl_sync(kFull, j, 0);
+    state = __shfl_sync(kFull, state, 0);
+    if (first) {
+      first = false;  // segment 1 walks on in the same window
+      continue;
     }
-    if (state != kHor) --i;
-    if (state != kVer) --j;
-    state = pred;
+    cp_async_wait<0>();
+    __syncwarp();
+    cur ^= 1;
+    da = nda;
+    ia = nia;
   }
-  scalars[b] = upper;
-  scalars[batch + b] = gap;
-  scalars[2 * batch + b] = cnt;
-  scalars[3 * batch + b] = seq_sum;
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // seq-score sum over the matched rows, off the walk's chain
+  const int* seq_of = seq + static_cast<size_t>(b) * la_max * lb_max;
+  uint32_t sum = 0;
+  for (int a = lane; a < la_max; a += 32) {
+    const int p = row[a];
+    if (p >= 0) sum += static_cast<uint32_t>(seq_of[a * lb_max + p]);
+  }
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+  if (lane == 0) {
+    scalars[b] = upper;
+    scalars[batch + b] = gap;
+    scalars[2 * batch + b] = cnt;
+    scalars[3 * batch + b] = static_cast<int>(sum);
+  }
+}
+
+// Whether the strip schedule always finishes (gotoh_cuda.ring_safe, which
+// picks the cluster size, says why): with more strips than warps per pair,
+// a row must stay short of the point where the last warp's strip waits on
+// one that the first warp has not started.
+bool ring_safe(int la_max, int lb_max, int cluster) {
+  const int strips = (la_max + 32) / 32;
+  const int p =
+      cluster * std::min(kMaxWarps, (strips + cluster - 1) / cluster);
+  return strips <= p || p * (kRing + 28 - kSub) >= lb_max + 32;
 }
 
 }  // namespace
@@ -201,23 +566,38 @@ const char* lara_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int lara_gotoh_dp(const int* pssm, const int* la, const int* lb, int batch,
-                  int la_max, int lb_max, int go, int ge, int8_t* dirs,
-                  int* finals, void* stream) {
-  const int width = la_max + 1;
-  const size_t smem = 9 * static_cast<size_t>(width) * sizeof(int);
+int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
+                  const int8_t* border, int batch, int la_max, int lb_max,
+                  int go, int ge, int cluster, int8_t* dirs, int* finals,
+                  void* stream) {
+  if (cluster < 1 || cluster > 8 || !ring_safe(la_max, lb_max, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int strips = (la_max + 32) / 32;
+  const int nw = std::min(kMaxWarps, (strips + cluster - 1) / cluster);
+  const size_t smem =
+      (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int threads = ((width + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  dp_forward_kernel<<<batch, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      pssm, la, lb, batch, la_max, lb_max, go, ge, dirs, finals);
+  cudaError_t err = cudaFuncSetAttribute(
+      dp_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec16 = (lb_max % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(pssm) % 16 == 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(32 * nw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel, pssm, la, lb, border, la_max,
+                           lb_max, go, ge, nw, batch, vec16, dirs, finals);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -225,10 +605,9 @@ int lara_gotoh_tb(const int8_t* dirs, const int* finals, const int* la,
                   const int* lb, const int* seq, int batch, int la_max,
                   int lb_max, int go, int ge, int* partner, int* scalars,
                   void* stream) {
-  const int threads = 128;  // four lanes per CTA
-  const int blocks = (batch * 32 + threads - 1) / threads;
-  dp_traceback_kernel<<<blocks, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(dirs) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  dp_walk_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       dirs, finals, la, lb, seq, batch, la_max, lb_max, go, ge, partner,
       scalars);
   return static_cast<int>(cudaGetLastError());

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lara_tpu.types import PSSM_INIT
+from lara_tpu_torch.types import PSSM_INIT
 
 NEG_INF = -1431655764  # == PSSM_INIT: int32 lowest / 3 * 2 (score.hpp:92)
 I32 = torch.int32

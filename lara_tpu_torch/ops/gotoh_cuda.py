@@ -27,9 +27,10 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from lara_tpu.types import PSSM_INIT
+from lara_tpu_torch.types import PSSM_INIT
 from lara_tpu_torch import _build
 from lara_tpu_torch.ops import gotoh, gotoh_plan
 from lara_tpu_torch.ops.gotoh import Traceback
@@ -42,23 +43,97 @@ def _require_lanes(la, lb, b, dev) -> None:
     _build.require(lb, "lb", I32, (b,), dev)
 
 
+def border_codes(go: int, ge: int, width: int) -> np.ndarray:
+    """The M and H direction codes (``mdir | hdir << 2``) of the left
+    border cells (i, 0), i < ``width``, as the plain sweep computes them.
+    They come from the cells left of column 0, which hold values that
+    depend only on their diagonal (NEG_INF rows before diagonal 0, no
+    score): G(d) = (max(G(d-2)) + NEG_INF, the H and V recurrences of
+    G(d-1)), all in wrapped int32.  Cell (i, 0) takes mdir from G(i-2) and
+    hdir from G(i-1)."""
+    def wrap(x):
+        return (x + 2**31) % 2**32 - 2**31
+
+    neg = gotoh.NEG_INF
+    g2 = g1 = (neg, neg, neg)
+    codes = np.empty(width, np.int8)
+    for i in range(width):
+        best = max(g2)
+        mdir = gotoh.MAT if g2[0] == best else (
+            gotoh.HOR if g2[1] == best else gotoh.VER)
+        m1, h1, v1 = g1
+        hh, hm, hv = wrap(h1 + ge), wrap(m1 + go), wrap(v1 + go)
+        h_new = max(hh, hm, hv)
+        hdir = gotoh.HOR if hh == h_new else (
+            gotoh.MAT if hm == h_new else gotoh.VER)
+        codes[i] = mdir | (hdir << 2)
+        v_new = max(wrap(v1 + ge), wrap(m1 + go), wrap(h1 + go))
+        g2, g1 = g1, (wrap(best + neg), h_new, v_new)
+    return codes
+
+
+@functools.lru_cache(maxsize=16)
+def _border_on(go: int, ge: int, width: int, device: torch.device):
+    return torch.from_numpy(border_codes(go, ge, width)).to(device)
+
+
+#: K1's constants (``csrc/gotoh_dp.cu``): warps per CTA at most, cells in
+#: a ring between strips, steps per block
+K1_MAX_WARPS = 16
+K1_RING = 88
+K1_SUB = 8
+
+
+def ring_safe(la_max: int, lb_max: int, cluster: int) -> bool:
+    """Whether K1's strip schedule always finishes at this shape on
+    ``cluster`` CTAs per pair.  A warp takes strips k, k + P, ... (P warps
+    per pair), and a strip waits for room in its consumer's ring; with more
+    strips than warps, the last warp's strip waits on a strip that the first
+    warp has not started yet, and the chain closes once a row is longer
+    than about P * (ring + 28 - steps per block).  The launcher refuses
+    what this refuses (``lara_gotoh_dp``), with a margin under the point
+    where a model of the schedule stalls (``tests/test_torch_gotoh.py``)."""
+    strips = (la_max + 32) // 32
+    p = cluster * min(K1_MAX_WARPS, -(-strips // cluster))
+    return strips <= p or p * (K1_RING + 28 - K1_SUB) >= lb_max + 32
+
+
+def cluster_size(b: int, la_max: int, lb_max: int,
+                 device: torch.device) -> int:
+    """K1's CTAs per pair: as many as fill the card's SMs, at most 4 (B=32
+    on 132 SMs: 4; B=128: 1), and more, up to 8, where fewer would let the
+    strip schedule stall (:func:`ring_safe`)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cluster = max(1, min(4, sms // max(1, b)))
+    while not ring_safe(la_max, lb_max, cluster):
+        if cluster == 8:
+            raise ValueError(f"K1 cannot run {la_max}x{lb_max} on 8 CTAs "
+                             "per pair")
+        cluster += 1
+    return cluster
+
+
 def dp_forward(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
-               go: int, ge: int):
+               go: int, ge: int, cluster: int = 0):
     """(dirs [B, D, W] int8, finals [3, B] int32) for a [B, LA, LB] int32
-    score grid; K1 on the card."""
+    score grid; K1 on the card, in clusters of ``cluster`` CTAs per pair
+    (0: :func:`cluster_size`; the launch raises where :func:`ring_safe`
+    refuses it)."""
     if not pssm.is_cuda:
         return gotoh.dp_forward(pssm, la, lb, go, ge)
     b, la_max, lb_max = pssm.shape
     dev = pssm.device
     _build.require(pssm, "pssm", I32, (b, la_max, lb_max), dev)
     _require_lanes(la, lb, b, dev)
+    border = _border_on(int(go), int(ge), la_max + 1, dev)
     dirs = torch.empty((b, la_max + lb_max + 1, la_max + 1),
                        dtype=torch.int8, device=dev)
     finals = torch.empty((3, b), dtype=I32, device=dev)
+    cluster = cluster or cluster_size(b, la_max, lb_max, dev)
     rc = _build.library().lara_gotoh_dp(
-        pssm.data_ptr(), la.data_ptr(), lb.data_ptr(), b, la_max, lb_max,
-        int(go), int(ge), dirs.data_ptr(), finals.data_ptr(),
-        _build.stream_of(pssm))
+        pssm.data_ptr(), la.data_ptr(), lb.data_ptr(), border.data_ptr(), b,
+        la_max, lb_max, int(go), int(ge), cluster, dirs.data_ptr(),
+        finals.data_ptr(), _build.stream_of(pssm))
     _build.check(rc, "gotoh_dp")
     _build.count("gotoh_dp")
     return dirs, finals

@@ -6,9 +6,10 @@ Counterpart of the single-device part of
 * pairs are bucketed by padded (LA, LB) class and each bucket is cut into
   chunks under a cell budget (``LARA_MAX_BATCH`` caps the chunk width);
 * per chunk: the edge filter on the device, the host interaction-model
-  build (``lara_tpu.solver.interactions``), one upload of the padded
-  :class:`~lara_tpu_torch.solver.device_solver.BatchModel`, the solve, one
-  packed result download, and the JAX package's host postprocessing;
+  build (:mod:`lara_tpu_torch.solver.interactions`), one upload of the
+  padded :class:`~lara_tpu_torch.solver.device_solver.BatchModel`, the
+  solve, one packed result download, and the host postprocessing
+  (:func:`_postprocess_lane`, as the JAX driver's);
 * lane refill (``LARA_REFILL=1``, cancelled by ``LARA_NO_REFILL``): a
   bucket wider than its chunk runs through one batch of lanes, and between
   dispatches every free lane takes the next waiting pair;
@@ -32,7 +33,7 @@ by the lane's activity.
 Exact matching (``-m 0``), lookahead beyond 8 and ``LARA_SOLVER=hybrid``
 go to the hybrid backend (:mod:`lara_tpu_torch.solver.hybrid_driver`),
 whose host bookkeeping is the native ``lagrange_host`` library; a failed
-build of it raises :class:`lara_tpu.native.NativeBuildError`.  Nothing is
+build of it raises :class:`lara_tpu_torch.native.NativeBuildError`.  Nothing is
 handed to the scalar mirror behind the caller's back.
 
 Not ported yet (ROADMAP): batches split over several devices.
@@ -49,17 +50,16 @@ from typing import Dict, Iterator, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from lara_tpu.params import Parameters
-from lara_tpu.scoring.ribosum import encode_rna5
-from lara_tpu.solver import interactions
-from lara_tpu.solver.device_driver import (DEFAULT_MAX_BATCH, _build_workers,
-                                           _chunk_dcap, _pad_dim,
-                                           _postprocess_lane)
-from lara_tpu.solver.reference_driver import PairResult
-from lara_tpu.types import f2i
-from lara_tpu.utils import log, timing
 from lara_tpu_torch.ops import gotoh
-from lara_tpu_torch.solver import device_solver
+from lara_tpu_torch.params import Parameters
+from lara_tpu_torch.scoring.ribosum import encode_rna5
+from lara_tpu_torch.solver import device_solver, interactions
+from lara_tpu_torch.solver.reference_driver import PairResult
+from lara_tpu_torch.types import INFINITY, f2i
+from lara_tpu_torch.utils import log, timing
+
+#: pairs per device batch (lanes beyond the pair count are padded)
+DEFAULT_MAX_BATCH = 512
 
 #: cap on B * LA * LB cells per chunk (the JAX driver's budget)
 CELL_BUDGET = 128 * 1024 * 1024
@@ -119,6 +119,40 @@ def buckets_of(store, pairs: Sequence[Tuple[int, int]]
     return sorted(buckets.items(), reverse=True)
 
 
+def _round_up(value: int, quantum: int) -> int:
+    return ((value + quantum - 1) // quantum) * quantum
+
+
+def _pad_dim(length: int) -> int:
+    """Bucket quantisation (``lara_tpu/solver/device_driver.py:69``): coarse
+    enough to batch well, fine enough to not waste O(L^2) work."""
+    if length <= 32:
+        return 32
+    if length <= 64:
+        return 64
+    if length <= 96:
+        return 96
+    return _round_up(length, 64)
+
+
+def _build_workers(params: Parameters) -> int:
+    """Host worker threads for the model build: ``-j`` (0 = autodetect),
+    mirroring the reference's thread-count resolution
+    (``parameters.hpp:124-129``)."""
+    threads = int(params.threads)
+    if threads <= 0:
+        threads = os.cpu_count() or 1
+    return max(1, threads)
+
+
+def _chunk_dcap(models) -> int:
+    """Quantised dual capacity of a chunk (``lara_tpu/solver/
+    device_driver.py:650``): 512, or the largest dual count rounded up to
+    a multiple of 1024."""
+    dcap = max(1, max(len(m.dual_l) for m in models))
+    return ((dcap + 1023) // 1024) * 1024 if dcap > 512 else 512
+
+
 def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
               device: torch.device) -> Iterator[PairResult]:
     """Solve every pair on ``device``; returns an iterator of one
@@ -127,7 +161,7 @@ def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
     ``next``."""
     host_matching = params.matching == 0 or params.matching > 8
     if host_matching or os.environ.get("LARA_SOLVER", "") == "hybrid":
-        from lara_tpu.native import lagrange
+        from lara_tpu_torch.native import lagrange
         from lara_tpu_torch.solver import hybrid_driver
 
         lagrange._load()  # raises NativeBuildError without the toolchain
@@ -603,3 +637,64 @@ def _download_result(result: device_solver.BatchResult, params: Parameters):
         parts.append(result.dual_at_queue)
     packed = torch.cat(parts, dim=1).cpu().numpy()
     return packed, result.best_partner.shape[1]
+
+
+def _postprocess_lane(packed, s: int, k: int, pair, model,
+                      params: Parameters, la_len: int) -> PairResult:
+    """One lane of a packed result download -> PairResult
+    (``lara_tpu/solver/device_driver.py:885``)."""
+    ia, ib = pair
+    linear = bool(params.library_score_is_linear)
+    pk = packed[k, :s][:la_len]
+    a_pos = np.nonzero(pk >= 0)[0]
+    best_nlines = int(packed[k, 2 * s])
+    assert len(a_pos) == best_nlines, "partner/count mismatch"
+    lines = [(int(a), int(pk[a])) for a in a_pos]
+    matched = packed[k, s:2 * s].astype(bool)[a_pos]
+    dual_q = packed[k, 2 * s + 4:][: len(model.dual_l)] if linear else None
+    columns = _structure_columns(model, params, lines, matched, dual_q)
+    if ia > ib:
+        columns = [(y, x, w) for (x, y, w) in columns]
+    best_lower = int(packed[k, 2 * s + 1])
+    return PairResult(
+        seq_indices=(min(ia, ib), max(ia, ib)),
+        columns=columns,
+        score=best_lower,
+        iterations=int(packed[k, 2 * s + 3]),
+        best_upper=int(packed[k, 2 * s + 2]),
+        best_lower=best_lower,
+    )
+
+
+def _structure_columns(model, params: Parameters, lines, matched, dual_q):
+    """``getStructureLines`` (``lagrange.hpp:437-487``) from device outputs."""
+    if not params.library_score_is_linear:
+        return [
+            (int(a), int(b), (500 if m else 0) + 500)
+            for (a, b), m in zip(lines, matched)
+        ]
+
+    # linear mode: per-edge top profits at the last queue-visible duals
+    ne = model.la * model.lb
+    mpp = np.full(ne, -int(INFINITY), np.int64)
+    if len(model.dual_l):
+        np.maximum.at(mpp, model.dual_l, model.sscore.astype(np.int64) + dual_q)
+    tops_all = model.seq_score.reshape(-1).astype(np.int64) + np.maximum(mpp, 0)
+    active_flat = model.active.reshape(-1)
+    tops_active = tops_all[active_flat]
+    min_score = int(tops_active.min())
+    max_score = int(tops_active.max())
+    if max_score > min_score:
+        div = np.float32(
+            np.float32(1.0)
+            * np.float32(params.library_score_max - params.library_score_min)
+            / np.float32(max_score - min_score)
+        )
+    else:
+        div = np.float32(0.0)
+    columns = []
+    for (a, b), m in zip(lines, matched):
+        top_val = int(tops_all[a * model.lb + b])
+        val = int(np.int32(np.trunc(np.float32(int(m) * (top_val - min_score)) * div)))
+        columns.append((int(a), int(b), params.library_score_min + val))
+    return columns

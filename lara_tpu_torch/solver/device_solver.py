@@ -42,7 +42,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from lara_tpu.types import INFINITY, PSSM_INIT
+from lara_tpu_torch.types import INFINITY, PSSM_INIT
 from lara_tpu_torch.ops import gotoh_cuda, gotoh_plan
 from lara_tpu_torch.solver.matching_device import greedy_matching_queue
 

@@ -9,8 +9,8 @@ iteration splits across the hardware the way the work is shaped:
   under ``LARA_DP_GRID`` / ``LARA_DP_RESIDENT``),
 * **host (C++)**: per-pair sparse bookkeeping -- priority-queue maxima,
   subgradients, exact (blossom, ``-m 0``) or greedy matching, dual updates,
-  incremental PSSM refresh -- in :mod:`lara_tpu.native.lagrange`, shared
-  with the JAX package, on a pool of threads,
+  incremental PSSM refresh -- in the port's native ``lagrange_host``
+  library (:mod:`lara_tpu_torch.native.lagrange`), on a pool of threads,
 * **work stealing**: a lane whose pair converges is refilled from the
   pending queue at once (``subgradient_solver.hpp:298-307``).
 
@@ -30,13 +30,13 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from lara_tpu.native.lagrange import PairSolver
-from lara_tpu.params import Parameters
-from lara_tpu.solver.reference_driver import PairResult
-from lara_tpu.types import PSSM_INIT
-from lara_tpu.utils import log, timing
+from lara_tpu_torch.native.lagrange import PairSolver
 from lara_tpu_torch.ops import gotoh_cuda
+from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.solver import device_driver
+from lara_tpu_torch.solver.reference_driver import PairResult
+from lara_tpu_torch.types import PSSM_INIT
+from lara_tpu_torch.utils import log, timing
 
 I32 = torch.int32
 

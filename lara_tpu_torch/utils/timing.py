@@ -1,22 +1,67 @@
-"""A ``torch.profiler`` trace of a region, under ``LARA_PROFILE=<dir>``.
+"""Phase timers, and a ``torch.profiler`` trace of a region under
+``LARA_PROFILE=<dir>``.
 
-Counterpart of :func:`lara_tpu.utils.timing.maybe_trace`, which traces with
-``jax.profiler``.  The phase timers themselves are the JAX package's
-(:mod:`lara_tpu.utils.timing`, which imports no JAX): their accumulation
-takes a lock, so the driver's solver and download threads may time phases
-beside the main thread.
+The phase timers are the JAX package's (``lara_tpu/utils/timing.py``,
+the reference's phase accounting, ``subgradient_solver.hpp:199-203,335-351``):
+host-side buckets of wall time per phase, logged at verbosity >= 1.  Their
+accumulation takes a lock, so the driver's solver and download threads may
+time phases beside the main thread.  :func:`maybe_trace` is the counterpart
+of the JAX package's, which traces with ``jax.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from collections import OrderedDict
 from typing import Iterator
 
 import torch
 
-from lara_tpu.utils import log
+from lara_tpu_torch.utils.logging import log
+
+_BUCKETS: "OrderedDict[str, float]" = OrderedDict()
+_COUNTS: "OrderedDict[str, int]" = OrderedDict()
+_LOCK = threading.Lock()
+
+
+def reset() -> None:
+    with _LOCK:
+        _BUCKETS.clear()
+        _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def phase(name: str) -> Iterator[None]:
+    """Accumulate wall time into the named bucket (thread-safe)."""
+    start = time.monotonic()
+    try:
+        yield
+    finally:
+        elapsed = time.monotonic() - start
+        with _LOCK:
+            _BUCKETS[name] = _BUCKETS.get(name, 0.0) + elapsed
+            _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def snapshot() -> "OrderedDict[str, float]":
+    """Copy of the accumulated phase buckets (seconds)."""
+    with _LOCK:
+        return OrderedDict(_BUCKETS)
+
+
+def report() -> None:
+    """Log the accumulated phase table at verbosity 1 (the reference's
+    'Alignment time / Matching time / Update time' block)."""
+    with _LOCK:
+        rows = [(n, s, _COUNTS[n]) for n, s in _BUCKETS.items()]
+    if not rows:
+        return
+    log(1, "Phase timings:")
+    for name, seconds, count in rows:
+        log(1, f"  {name:<28s} {seconds:8.3f} s  (x{count})")
 
 
 @contextlib.contextmanager

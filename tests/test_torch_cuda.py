@@ -6,7 +6,8 @@ on the same CUDA tensors, with zero tolerance (every output is an
 integer), K1 + K2 at the 16S bucket's 1536 x 1536 included; the driver's
 paths (fused, hybrid, lane refill, the cross-chunk pipeline on its CUDA
 streams) and ``splice_lanes`` on the card against the CPU.  This
-file imports no JAX, so it runs on a machine that has a card and no JAX:
+file imports no JAX and nothing of ``lara_tpu``, so it runs on a machine
+that has a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -18,10 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from lara_tpu.types import PSSM_INIT
 from lara_tpu_torch import _build
 from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
 from lara_tpu_torch.solver import matching_cuda, matching_device
+from lara_tpu_torch.types import PSSM_INIT
 
 pytestmark = pytest.mark.cuda
 
@@ -40,10 +41,12 @@ def _int_equal(got, want, name):
     assert torch.equal(got.to(torch.int64), want.to(torch.int64)), name
 
 
-# (batch, la_max, lb_max, seed): tiny, ragged, the tRNA bucket, wider than
-# one CTA (1100 offsets > 1024 threads) and beyond 48 KB of shared memory
+# (batch, la_max, lb_max, seed): tiny, ragged (la_max not a multiple of
+# 32), the tRNA bucket, la_max > lb_max and la_max < lb_max far apart, more
+# strips than one CTA's 16 warps (1100, 1400 rows), B above the H100's 132
+# SMs
 DP_CASES = [(4, 12, 10, 3), (9, 33, 47, 5), (16, 96, 96, 7), (2, 1100, 40, 9),
-            (1, 1400, 16, 13)]
+            (1, 1400, 16, 13), (3, 45, 700, 21), (140, 20, 30, 23)]
 
 
 def _dp_problem(case, dev):
@@ -83,6 +86,69 @@ def test_dp_kernels_match_plain(case, cuda):
     tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
     torch.cuda.synchronize()
 
+    _int_equal(finals_k, finals_p, "finals")
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda)
+    _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
+               "dirs")
+    for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
+        _int_equal(got, want, field)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("case", [(2, 1100, 40, 9), (5, 300, 77, 11),
+                                  (3, 45, 700, 21), (6, 64, 64, 25)])
+def test_dp_kernel_cluster_sizes_match_plain(case, cluster, cuda):
+    """K1 with 1, 2 and 4 CTAs per pair (at one CTA, 1100 rows are 35
+    strips on 16 warps, so warps take several strips; at 2 and 4 the rings
+    between strips cross CTAs through distributed shared memory)."""
+    _b, la_max, lb_max, _seed = case
+    pssm_t, _seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE,
+                                             cluster=cluster)
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    torch.cuda.synchronize()
+    _int_equal(finals_k, finals_p, "finals")
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda)
+    _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
+               "dirs")
+
+
+def test_dp_kernel_refuses_a_stalling_schedule(cuda):
+    """600 rows are 19 strips, more than one CTA's 16 warps, and rows of
+    1800 cells would stall the strip schedule there (``ring_safe``): an
+    explicit cluster of 1 raises before any launch, and the wrapper's own
+    choice (4 CTAs, one strip per warp) runs and is exact."""
+    case = (2, 600, 1800, 31)
+    _b, la_max, lb_max, _seed = case
+    pssm_t, _seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    assert not gotoh_cuda.ring_safe(la_max, lb_max, 1)
+    before = _build.launches["gotoh_dp"]
+    with pytest.raises(_build.KernelLaunchError):
+        gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE, cluster=1)
+    assert _build.launches["gotoh_dp"] == before
+    assert gotoh_cuda.cluster_size(2, la_max, lb_max, cuda) == 4
+    dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    torch.cuda.synchronize()
+    _int_equal(finals_k, finals_p, "finals")
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda)
+    _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
+               "dirs")
+
+
+@pytest.mark.parametrize("go,ge", [(GO, GE), (5, 3), (0, 0)])
+def test_dp_kernels_all_neg_inf_scores(go, ge, cuda):
+    """Every score NEG_INF: the M sums wrap in int32 on every cell, and the
+    codes, finals and traceback still equal the plain version's."""
+    case = (6, 70, 50, 27)
+    _b, la_max, lb_max, _seed = case
+    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    pssm_t.fill_(PSSM_INIT)
+    dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
+    tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, go, ge, seq_t)
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge)
+    tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, go, ge, seq_t)
+    torch.cuda.synchronize()
     _int_equal(finals_k, finals_p, "finals")
     valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda)
     _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
@@ -176,9 +242,9 @@ def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
     give on the card what they give on the CPU, and launch the variant's
     kernels (K3 on the fused path only).  The three records' structures
     conflict, so the pairs iterate."""
-    from lara_tpu.app import enumerate_pairs
-    from lara_tpu.io.records import InputStorage
-    from lara_tpu.params import Parameters
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.io.records import InputStorage
+    from lara_tpu_torch.params import Parameters
     from lara_tpu_torch.solver import device_driver
 
     for key in ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_SOLVER"):
@@ -262,9 +328,10 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 
 def test_dp_kernels_at_16s_bucket(cuda):
-    """K1 + K2 at the 16S bucket, B=2 1536 x 1536: K1 needs 55 KB of
-    opt-in shared memory (nine rows of 1537 int32) and K2 walks up to 3072
-    steps per pair."""
+    """K1 + K2 at the 16S bucket, B=2 1536 x 1536: K1 runs 49 strips on
+    four CTAs per pair (13 warps and about 180 KB of opt-in shared memory
+    each), and K2 walks up to 3072 steps per pair through about 100
+    windows."""
     case = (2, 1536, 1536, 17)
     _b, la_max, lb_max, _seed = case
     pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
@@ -314,10 +381,10 @@ def _write_family(path, lengths, seed):
 
 
 def _solve_library(path, dev, **kw):
-    from lara_tpu.app import enumerate_pairs
-    from lara_tpu.io.records import InputStorage
-    from lara_tpu.io.writers import OutputLibrary
-    from lara_tpu.params import Parameters
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.io.records import InputStorage
+    from lara_tpu_torch.io.writers import OutputLibrary
+    from lara_tpu_torch.params import Parameters
     from lara_tpu_torch.solver import device_driver
 
     records = InputStorage(in_file=path)

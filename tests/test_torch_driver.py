@@ -18,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from lara_tpu.app import enumerate_pairs
-from lara_tpu.io.records import InputStorage
-from lara_tpu.io.writers import OutputLibrary
-from lara_tpu.params import Parameters
-from lara_tpu.utils import timing
 from lara_tpu_torch import convert
+from lara_tpu_torch.app import enumerate_pairs
+from lara_tpu_torch.io.records import InputStorage
+from lara_tpu_torch.io.writers import OutputLibrary
+from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.solver import device_driver, device_solver
+from lara_tpu_torch.utils import timing
 
 from tests.test_device_solver import run_backend, write_family
 
@@ -374,6 +374,7 @@ def test_model_rows_match_jax(tmp_path):
     models, _ = device_driver._filter_and_build(store, pairs, params, 32, 32,
                                                 CPU)
     dcap = device_driver._chunk_dcap(models)
+    assert dcap == jax_driver._chunk_dcap(models)
     got = device_driver._model_rows(models, 32, 32, dcap)
     want = jax_driver._model_rows(models, 32, 32, dcap)
     for name, g, w in zip(device_solver.BatchModel._fields, got, want):

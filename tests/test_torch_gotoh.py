@@ -7,6 +7,9 @@ Pallas kernels in interpret mode.  ``tests/test_torch_cuda.py`` holds the
 kernels against the plain versions on a card.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,9 +18,9 @@ import jax.numpy as jnp
 
 from lara_tpu.ops import gotoh as jax_gotoh
 from lara_tpu.ops.gotoh_pallas import align_pssm_batch_pallas
-from lara_tpu.params import Parameters
 from lara_tpu.types import PSSM_INIT, f2i
 from lara_tpu_torch.ops import gotoh, gotoh_cuda
+from lara_tpu_torch.params import Parameters
 
 GO, GE = -49152, -16384
 
@@ -129,3 +132,101 @@ def test_edge_filter_matches_jax(seed):
     np.testing.assert_array_equal(active, want_active)
     np.testing.assert_array_equal(opt, want_opt)
     assert active.any()
+
+
+@pytest.mark.parametrize("go,ge", [(GO, GE), (5, 3), (0, 0), (-3, 7),
+                                   (100000, -1)])
+def test_border_codes_match_plain_sweep(go, ge):
+    """K1 takes the M and H codes of the left border cells (i, 0) from
+    ``gotoh_cuda.border_codes`` instead of sweeping the cells left of
+    column 0; they equal the plain sweep's for every i, whatever the gap
+    scores (the wrap of NEG_INF sums included)."""
+    rng = np.random.default_rng(go & 0xffff)
+    la_max, lb_max = 70, 9
+    pssm = torch.from_numpy(
+        rng.integers(-9000, 9000, (3, la_max, lb_max)).astype(np.int32))
+    la = torch.tensor([la_max, 1, 33], dtype=torch.int32)
+    lb = torch.tensor([lb_max, 4, 1], dtype=torch.int32)
+    dirs, _ = gotoh.dp_forward(pssm, la, lb, go, ge)
+    codes = gotoh_cuda.border_codes(go, ge, la_max + 1)
+    for k in range(3):
+        i = torch.arange(int(la[k]) + 1)
+        np.testing.assert_array_equal(dirs[k, i, i].numpy() & 15,
+                                      codes[:int(la[k]) + 1])
+
+
+def _k1_constants():
+    """kMaxWarps, kRing and kSub as ``csrc/gotoh_dp.cu`` defines them."""
+    path = os.path.join(os.path.dirname(gotoh_cuda.__file__), os.pardir,
+                        "csrc", "gotoh_dp.cu")
+    with open(path) as handle:
+        src = handle.read()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
+                     .group(1)) for name in ("kMaxWarps", "kRing", "kSub"))
+
+
+def _strip_schedule_finishes(la, lb, cluster):
+    """A model of K1's strip schedule on one pair of la x lb: warp g of the
+    pair's P takes strips g, g + P, ...; a block of kSub steps of strip k
+    runs once strip k-1 has put the up cells it reads (lane 31 puts column
+    s - 31 after the block holding step s) and strip k+1 has consumed
+    enough of the ring for the cells it puts.  True if every strip ends."""
+    max_warps, ring, sub = _k1_constants()
+    strips = (la + 32) // 32
+    p = cluster * min(max_warps, -(-strips // cluster))
+    ncol, nblocks = lb + 1, -(-(lb + 32) // sub)
+    done = [0] * strips                  # blocks run
+    put = [-1] * strips                  # last column put
+    consumed = [0] * p                   # the count each producer warp reads
+    moved = True
+    while moved:
+        moved = False
+        for k in range(strips):
+            if k >= p and done[k - p] < nblocks:
+                continue                 # its warp still runs strip k - p
+            while done[k] < nblocks:
+                s0 = done[k] * sub
+                take = k > 0 and s0 <= lb
+                if take and put[k - 1] < min(s0 + sub - 1, lb):
+                    break
+                out_last = min(s0 + sub - 1 - 31, lb)
+                if k + 1 < strips and out_last >= 0 and \
+                        consumed[k % p] < k // p * ncol + out_last + 1 - ring:
+                    break
+                done[k] += 1
+                moved = True
+                if k + 1 < strips and out_last >= 0:
+                    put[k] = out_last
+                if take:
+                    consumed[(k - 1) % p] = (k - 1) // p * ncol + min(
+                        s0 + sub, ncol)
+    return all(d == nblocks for d in done)
+
+
+def test_k1_constants_match_the_source():
+    assert _k1_constants() == (gotoh_cuda.K1_MAX_WARPS, gotoh_cuda.K1_RING,
+                               gotoh_cuda.K1_SUB)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_k1_ring_safe_shapes_finish(cluster):
+    """Every shape that ``ring_safe`` admits (and the launcher then runs)
+    finishes in the model of K1's strip schedule, up to the longest row it
+    admits; with more strips than warps, a row 4 cells per warp past that
+    still finishes, and 8 more stall the model: the hang the launcher
+    refuses."""
+    stalls = multi = 0
+    for la in (90, 600, 1100, 1536, 2100, 2900):
+        strips = (la + 32) // 32
+        p = cluster * min(gotoh_cuda.K1_MAX_WARPS, -(-strips // cluster))
+        longest = p * (gotoh_cuda.K1_RING + 28 - gotoh_cuda.K1_SUB) - 32
+        for lb in (1, 45, 700, 1536, longest - 40, longest):
+            if lb >= 1 and gotoh_cuda.ring_safe(la, lb, cluster):
+                assert _strip_schedule_finishes(la, lb, cluster), (la, lb)
+        if strips > p:
+            multi += 1
+            assert not gotoh_cuda.ring_safe(la, longest + 1, cluster)
+            assert _strip_schedule_finishes(la, longest + 4 * p, cluster)
+            stalls += not _strip_schedule_finishes(la, longest + 4 * p + 8,
+                                                   cluster)
+    assert stalls == multi > 0

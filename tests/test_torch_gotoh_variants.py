@@ -20,10 +20,10 @@ import jax.numpy as jnp
 from lara_tpu.ops import gotoh as jax_gotoh
 from lara_tpu.ops.gotoh_pallas import align_pssm_batch_pallas, \
     gotoh_scan_pallas
-from lara_tpu.params import Parameters
 from lara_tpu.solver.device_solver import _align_dchunk
 from lara_tpu.types import f2i
 from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
+from lara_tpu_torch.params import Parameters
 
 from tests.test_torch_gotoh import CASES, GE, GO, _problem
 

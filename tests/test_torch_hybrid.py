@@ -1,7 +1,8 @@
 """The port's hybrid backend vs. the JAX hybrid and the scalar mirror.
 
 ``lara_tpu_torch.solver.hybrid_driver`` on the CPU (the DP's plain
-versions, the shared native ``lagrange_host`` bookkeeping) must give every
+versions, the port's own native ``lagrange_host`` bookkeeping, on the
+port's own ``Parameters``) must give every
 pair the same columns, score, bounds and iteration count as
 ``lara_tpu.solver.hybrid_driver.solve_all`` and
 ``reference_driver.solve_pair``, on the family of ``tests/test_hybrid.py``,
@@ -13,13 +14,15 @@ import pytest
 import torch
 
 from lara_tpu.app import enumerate_pairs
-from lara_tpu.native import NativeBuildError
 from lara_tpu.params import Parameters
 from lara_tpu.solver import hybrid_driver as jax_hybrid
 from lara_tpu.solver import reference_driver
+from lara_tpu_torch import app
+from lara_tpu_torch.native import NativeBuildError
 from lara_tpu_torch.solver import device_driver, hybrid_driver
 
 from tests.test_hybrid import _native_or_skip, make_family
+from tests.test_torch_standalone import port_params
 
 CPU = torch.device("cpu")
 
@@ -30,8 +33,10 @@ def _fields(res):
 
 
 def _port(records, params, **kw):
-    pairs = enumerate_pairs(records)
-    results = list(hybrid_driver.solve_all(records, pairs, params, CPU, **kw))
+    """The port's results, on the port's copy of ``params``."""
+    pairs = app.enumerate_pairs(records)
+    results = list(hybrid_driver.solve_all(records, pairs,
+                                           port_params(params), CPU, **kw))
     assert len(results) == len(pairs)
     return {r.seq_indices: r for r in results}
 
@@ -125,17 +130,17 @@ def test_turns_count_batched_iterations():
 def test_failed_native_build_raises(monkeypatch, tmp_path):
     """No silent fall-back to the scalar mirror: a failed lagrange_host
     build raises from solve_all and is a clean error in the CLI."""
-    from lara_tpu.native import lagrange
     from lara_tpu_torch.cli import main
+    from lara_tpu_torch.native import lagrange
 
     def broken():
         raise NativeBuildError("g++ failed for lagrange_host: no compiler")
 
     monkeypatch.setattr(lagrange, "_load", broken)
     records = make_family(n=2)
-    params = Parameters(in_file="<test>", matching=0)
+    params = port_params(Parameters(in_file="<test>", matching=0))
     with pytest.raises(NativeBuildError):
-        device_driver.solve_all(records, enumerate_pairs(records), params,
+        device_driver.solve_all(records, app.enumerate_pairs(records), params,
                                 CPU)
     path = tmp_path / "two.dbn"
     path.write_text(">h1\nGGGGAAAACCCC\n((((....))))\n"

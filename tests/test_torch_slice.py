@@ -18,10 +18,10 @@ import sys
 import pytest
 import torch
 
-from lara_tpu.io.records import InputStorage
-from lara_tpu.io.writers import OutputLibrary
-from lara_tpu.params import Parameters
 from lara_tpu_torch import _device, app
+from lara_tpu_torch.io.records import InputStorage
+from lara_tpu_torch.io.writers import OutputLibrary
+from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.solver import device_driver
 
 from tests.test_device_solver import run_backend, write_family
@@ -120,7 +120,7 @@ def test_golden_configs(in_name, golden, extra, tmp_path, monkeypatch):
 
 def test_cli_runs_without_jax(tmp_path):
     """The port's CLI (with --msa, and on the hybrid backend with -m 0)
-    never imports JAX."""
+    never imports JAX, nor anything of the JAX package."""
     path = tmp_path / "two.dbn"
     path.write_text(">h1\nGGGGAAAACCCC\n((((....))))\n"
                     ">h2\nGGGCAAAAGCCC\n(((.(...))))\n")
@@ -135,6 +135,8 @@ def test_cli_runs_without_jax(tmp_path):
         f"rc = main(['-i', {str(path)!r}, '-w', {str(exact)!r}, '-m', '0'])\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not [m for m in sys.modules if m == 'lara_tpu'\n"
+        "            or m.startswith('lara_tpu.')], 'lara_tpu was imported'\n"
     )
     env = dict(os.environ, LARA_PLATFORM="cpu")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
