@@ -18,7 +18,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    main path runs it, after a K1 that has just written its codes (the
    pair's time less K1's); K3 (greedy matching) at the main path's B=128
    and B=32 with W=512 columns and B=32 W=1536 S=1536, and at B=128 with
-   W=256 and W=1024, lookahead 1, 2, 5, 8;
+   W=256 and W=1024, lookahead 1, 2, 5, 8, each with the rounds of its
+   longest lane (counted in the plain loop) and the time per round;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
    families (``lara_tpu_torch.workloads``, copies of ``bench.py``'s): tRNA
    (120 pairs of ~72 nt), ~300 nt (28 pairs), 16S (28 pairs of 1530 nt,
@@ -40,7 +41,9 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    ``LARA_PIPELINE=1`` in turns; each must write the same bytes;
 4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks: the
    unprofiled wall per iteration, and from ``torch.profiler`` the device
-   busy share, kernels per iteration and the K1/K2/K3 time.
+   busy share, kernels per iteration and the K1/K2/K3 time; K3 is held
+   against the plain version, and timed, on the solver's own arguments of
+   iterations 1-3 and 25.
 
 It then checks that neither JAX nor any module of the JAX package (nor
 ``bench``) was loaded, prints a ``{"kernels": [...]}`` line, the
@@ -303,36 +306,73 @@ def _matching_case(b, width, slots, seed):
     return lq, mq, wq, live, line
 
 
-def _matching_phase(b, width, slots, lookahead, seed, dev, stats):
+@contextlib.contextmanager
+def _counted_rounds():
+    """A list that gets, for every round of the plain loop
+    (``matching_device.rounds_loop`` calls ``_solve_conflicts_enum`` once
+    a round), the number of lanes still engaged in it: its length is the
+    rounds of the longest lane, as the kernel runs them."""
+    from lara_tpu_torch.solver import matching_device
+
+    engaged = []
+    solve = matching_device._solve_conflicts_enum
+
+    def spy(sel_l, sel_m, sel_w, sel_cnt, lanes, lh):
+        engaged.append(int(lanes.sum()))
+        return solve(sel_l, sel_m, sel_w, sel_cnt, lanes, lh)
+
+    matching_device._solve_conflicts_enum = spy
+    try:
+        yield engaged
+    finally:
+        matching_device._solve_conflicts_enum = solve
+
+
+def _hold_matching(label, args, lookahead, stats, time_plain=True):
+    """K3 against the plain version on ``args`` (fatal on any difference),
+    timed with CUDA events beside its bound, with the rounds of the
+    longest lane and the time per round."""
     import torch
 
     from lara_tpu_torch.solver import matching_cuda, matching_device
 
-    args = [torch.from_numpy(x).to(dev)
-            for x in _matching_case(b, width, slots, seed)]
     got = matching_cuda.rounds_loop_cuda(*args, lookahead)
-    want = matching_device.rounds_loop(*args, lookahead)
+    with _counted_rounds() as engaged:
+        want = matching_device.rounds_loop(*args, lookahead)
     torch.cuda.synchronize()
     err = max(_max_abs_err(got.score, want.score),
               _max_abs_err(got.used_slot, want.used_slot))
     if err:
-        raise AssertionError(f"K3 disagrees with the plain version at B={b} "
-                             f"W={width} lh={lookahead}: {err}")
+        raise AssertionError(f"K3 disagrees with the plain version at "
+                             f"{label}: {err}")
     ms = _time_ms(lambda: matching_cuda.rounds_loop_cuda(*args, lookahead), 20)
-    plain_ms = _time_ms(lambda: matching_device.rounds_loop(*args, lookahead),
-                        2)
+    plain_ms = _time_ms(
+        lambda: matching_device.rounds_loop(*args, lookahead),
+        2) if time_plain else None
     # bound: each input read once, each output written once; one subset
     # evaluation of the 2^lh memo per live column
     nbytes = sum(x.numel() * x.element_size() for x in args) \
         + got.score.numel() * 4 + got.used_slot.numel()
     bound_ms, bound_by = _bound(nbytes,
                                 float(args[3].sum()) * 2 ** lookahead)
-    shape = f"B={b} W={width} S={slots} lh={lookahead}"
-    stats["matching_rounds"].append((shape, err, ms, plain_ms, bound_ms,
-                                     bound_by))
-    print(f"  {'matching_rounds':16s} {shape:24s} max_abs_err {err}  kernel "
-          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+    rounds = len(engaged)
+    stats["matching_rounds"].append((label, err, ms, plain_ms, bound_ms,
+                                     bound_by, {"rounds": rounds}))
+    plain = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
+    print(f"  {'matching_rounds':16s} {label:24s} max_abs_err {err}  kernel "
+          f"{ms:.4f} ms  plain {plain}  bound {bound_ms:.4f} ms "
+          f"({bound_by}); longest lane {rounds} rounds, "
+          f"{1e3 * ms / max(rounds, 1):.3f} us per round, mean "
+          f"{sum(engaged) / max(len(args[0]), 1):.1f} rounds a lane")
+
+
+def _matching_phase(b, width, slots, lookahead, seed, dev, stats):
+    import torch
+
+    args = [torch.from_numpy(x).to(dev)
+            for x in _matching_case(b, width, slots, seed)]
+    _hold_matching(f"B={b} W={width} S={slots} lh={lookahead}", args,
+                   lookahead, stats)
 
 
 def _native_check(name, store, pairs, params, run, library, threads):
@@ -545,12 +585,39 @@ def _mixed_path(family, dev, tmp, expect):
     return run
 
 
-def _profile_phase(label, records, dev, n_iter=25):
+@contextlib.contextmanager
+def _k3_calls(keep):
+    """A dict that gets copies of the arguments of the solver's K3 calls
+    (``device_solver.greedy_matching_queue``) whose index is in ``keep``."""
+    import torch
+
+    from lara_tpu_torch.solver import device_solver
+
+    calls, seen = {}, []
+    real = device_solver.greedy_matching_queue
+
+    def spy(*args):
+        if len(seen) in keep:
+            calls[len(seen)] = [a.clone() if torch.is_tensor(a) else a
+                                for a in args]
+        seen.append(1)
+        return real(*args)
+
+    device_solver.greedy_matching_queue = spy
+    try:
+        yield calls
+    finally:
+        device_solver.greedy_matching_queue = real
+
+
+def _profile_phase(label, records, dev, stats, n_iter=25):
     """Where one chunk's solve spends its time: the unprofiled wall of
     ``n_iter`` warm iterations, and from ``torch.profiler`` over the same
     iterations the device time, kernels per iteration and K1/K2/K3 time.
     The busy share divides device time by the UNPROFILED wall (the profiler
-    itself slows the host)."""
+    itself slows the host).  K3's arguments in iterations 1, 2, 3 and
+    ``n_iter`` of the first solve are kept, and K3 is held against the
+    plain version and timed on them: the solver's real queues."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -577,7 +644,8 @@ def _profile_phase(label, records, dev, n_iter=25):
             scan_steps)
         torch.cuda.synchronize()
 
-    solve()
+    with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
+        solve()
     start = time.perf_counter()
     solve()
     wall_ms = (time.perf_counter() - start) * 1e3
@@ -596,6 +664,10 @@ def _profile_phase(label, records, dev, n_iter=25):
           f"{sum(e.count for e in device) / n_iter:.1f} kernels/iteration, "
           "K1/K2/K3 " + " / ".join(f"{us:.1f}" for us in ours.values())
           + " us/iteration")
+    for k in sorted(calls):
+        args = calls[k]
+        _hold_matching(f"{label} iteration {k + 1}", args[:5], args[5],
+                       stats, time_plain=False)
 
 
 def main() -> int:
@@ -699,8 +771,8 @@ def main() -> int:
           f"{launches}")
     print("where one chunk's solve spends its time:")
     for label, records in (trna, rrna):
-        _profile_phase(label, records, dev)
-    _profile_phase(*long16, dev)
+        _profile_phase(label, records, dev, stats)
+    _profile_phase(*long16, dev, stats)
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "lara_tpu", "bench")
                      or m.startswith(("jax.", "lara_tpu.")))
@@ -710,7 +782,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # the first shape is the main path's (the tRNA chunk's)
-        shape, _err, ms, plain_ms, bound_ms, bound_by = stats[name][0]
+        shape, _err, ms, plain_ms, bound_ms, bound_by, *extra = \
+            stats[name][0]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -720,6 +793,8 @@ def main() -> int:
             # no PyTorch call computes an affine-gap DP, its traceback or
             # the greedy lookahead matching
             "library_ms": None, "shape": shape}
+        for more in extra:  # K3: the rounds of the longest lane
+            entry.update(more)
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)

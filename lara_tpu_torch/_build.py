@@ -144,7 +144,8 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.lara_matching_rounds.restype = i32
         lib.lara_matching_rounds.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr,
+            ptr, ptr]
         lib.lara_gotoh_grid_dp.restype = i32
         lib.lara_gotoh_grid_dp.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]

@@ -3,7 +3,9 @@
 K1 + K2, K1-grid + K2-grid and K-res (``lara_tpu_torch.ops.gotoh_cuda``)
 and K3 (``lara_tpu_torch.solver.matching_cuda``) against the plain versions
 on the same CUDA tensors, with zero tolerance (every output is an
-integer), K1 + K2 at the 16S bucket's 1536 x 1536 included; the driver's
+integer), K1 + K2 at the 16S bucket's 1536 x 1536 included, K3 at ragged
+widths, arbitrary ids, lookahead 1-8, a queue wider than its ring and its
+shared-memory set, and on the solver's own 16S queues; the driver's
 paths (fused, hybrid, lane refill, the cross-chunk pipeline on its CUDA
 streams) and ``splice_lanes`` on the card against the CPU.  This
 file imports no JAX and nothing of ``lara_tpu``, so it runs on a machine
@@ -312,6 +314,136 @@ def test_matching_kernel_matches_plain(width, lookahead, cuda):
     want = matching_device.rounds_loop(*args, lookahead)
     _int_equal(got.score, want.score, "score")
     _int_equal(got.used_slot, want.used_slot, "used_slot")
+
+
+def _any_ids_case(b, width, slots, seed):
+    """Columns with arbitrary ids (INT32_MIN, the kernel's empty mark, and
+    negative ids among them) and ties on every weight; lane 0 has no live
+    column and lane 1 none that conflict (where the batch has them)."""
+    rng = np.random.default_rng(seed)
+    ids = np.array([-2 ** 31, -7, 0, 5, 2 ** 31 - 1, 1 << 20, 3, 4, 9],
+                   np.int32)
+    lq = ids[rng.integers(0, len(ids), (b, width))]
+    mq = ids[rng.integers(0, len(ids), (b, width))]
+    wq = (rng.integers(-3, 4, (b, width)) * 2).astype(np.int32)
+    live = rng.random((b, width)) < 0.6
+    line = ids[rng.integers(0, len(ids), (b, slots))]
+    if b > 1:
+        live[0] = False
+        lq[1] = np.arange(width, dtype=np.int32) * 2
+        mq[1] = lq[1] + 1
+        live[1] = True
+    return lq, mq, wq, live, line
+
+
+def _hold_k3(args, lookahead):
+    """K3 against the plain version; one launch per call."""
+    before = _build.launches["matching_rounds"]
+    got = matching_device.greedy_matching_queue(*args, lookahead)
+    assert _build.launches["matching_rounds"] == before + 1
+    want = matching_device.rounds_loop(*args, lookahead)
+    _int_equal(got.score, want.score, "score")
+    _int_equal(got.used_slot, want.used_slot, "used_slot")
+    return want
+
+
+# W=1 and widths that are not a multiple of 32; W=2049 streams through the
+# ring of 2048 columns
+@pytest.mark.parametrize("b,width,slots", [(1, 1, 4), (1, 45, 16), (3, 33, 7),
+                                           (9, 100, 30), (4, 2049, 64)])
+@pytest.mark.parametrize("lookahead", range(1, 9))
+def test_matching_kernel_shapes(b, width, slots, lookahead, cuda):
+    args = [torch.from_numpy(x).to(cuda)
+            for x in _any_ids_case(b, width, slots, width * 8 + lookahead)]
+    _hold_k3(args, lookahead)
+
+
+def test_matching_kernel_empty_batch_launches_nothing(cuda):
+    args = [torch.from_numpy(x).to(cuda)
+            for x in _any_ids_case(0, 64, 8, 1)]
+    before = _build.launches["matching_rounds"]
+    got = matching_cuda.rounds_loop_cuda(*args, 5)
+    assert _build.launches["matching_rounds"] == before
+    assert got.score.shape == (0,) and got.used_slot.shape == (0, 8)
+
+
+def test_matching_kernel_dead_and_conflict_free_lanes(cuda):
+    """Lanes with no live column score 0 and use no slot; when no two
+    columns share an endpoint, every live column is kept."""
+    b, width = 6, 300
+    lq = np.arange(b * width, dtype=np.int32).reshape(b, width) * 2
+    mq = lq + 1
+    wq = np.full((b, width), 4, np.int32)
+    live = np.ones((b, width), bool)
+    live[::2] = False
+    line = np.concatenate([lq[:, :50], mq[:, -50:]], axis=1)
+    args = [torch.from_numpy(x).to(cuda) for x in (lq, mq, wq, live, line)]
+    for lookahead in (1, 5, 8):
+        want = _hold_k3(args, lookahead)
+        assert want.score.tolist() == [0, 4 * width] * 3
+        assert want.used_slot[1::2].all() and not want.used_slot[::2].any()
+
+
+@pytest.mark.parametrize("lookahead", [3, 5])
+def test_matching_kernel_tie_rule(lookahead, cuda):
+    """Eliminating slot 1 costs exactly slot 0's weight, so the memo does
+    not explore L (tests/test_torch_matching.py::test_k3_model_tie_rule)."""
+    case = ([[0, 0, 20]], [[10, 20, 30]], [[4, 4, -2]], [[True] * 3],
+            [[0, 10, 20, 30, 99]])
+    args = [torch.tensor(x, dtype=torch.bool if k == 3 else torch.int32,
+                         device=cuda) for k, x in enumerate(case)]
+    assert int(_hold_k3(args, lookahead).score[0]) == 2
+
+
+def test_matching_kernel_wide_queue(cuda):
+    """W=40000: the ring streams the row 1024 columns at a time and the
+    set of kept endpoints lives in the wrapper's global scratch."""
+    kp = matching_cuda.plan(40000)
+    assert kp.ring == 2048 and not kp.table_in_smem
+    args = [torch.from_numpy(x).to(cuda)
+            for x in _matching_case(3, 40000, 64, 40)]
+    for lookahead in (2, 5):
+        _hold_k3(args, lookahead)
+
+
+def test_matching_kernel_on_solver_inputs(cuda):
+    """K3 on the solver's own queues: the first four calls of a 16S-shape
+    chunk (three pairs of 1530 nt, 1536 line slots)."""
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.solver import device_driver, device_solver
+    from lara_tpu_torch.workloads import make_long_family
+
+    records = make_long_family(n=3, length=1530, seed=47)
+    params = Parameters(in_file="<test>")
+    pad = device_driver._pad_dim(max(len(r.sequence) for r in records))
+    models, _ = device_driver._filter_and_build(
+        records, enumerate_pairs(records), params, pad, pad, cuda)
+    batch, scan_steps = device_driver._pack_models(models, pad, pad, cuda)
+    b, d = batch.dual_l.shape
+    carry = device_solver._init_carry(
+        b, d, pad, np.float32(params.step_size_factor),
+        int(params.num_iterations), cuda)
+    calls = []
+    real = device_solver.greedy_matching_queue
+
+    def spy(*args):
+        calls.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return real(*args)
+
+    device_solver.greedy_matching_queue = spy
+    try:
+        device_solver.solve_batch_chunk(
+            batch, carry, int(params.gap_open_int),
+            int(params.gap_extend_int), pad, pad, 4,
+            int(params.max_nondecr_iterations), int(params.matching),
+            scan_steps)
+    finally:
+        device_solver.greedy_matching_queue = real
+    assert len(calls) == 4 and calls[0][0].shape == (b, d // 2)
+    assert any(bool(c[3].any()) for c in calls)
+    for args in calls:
+        _hold_k3(args[:5], args[5])
 
 
 def test_wrappers_reject_bad_inputs(cuda):

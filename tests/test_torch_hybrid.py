@@ -21,8 +21,8 @@ from lara_tpu_torch import app
 from lara_tpu_torch.native import NativeBuildError
 from lara_tpu_torch.solver import device_driver, hybrid_driver
 
-from tests.test_hybrid import _native_or_skip, make_family
-from tests.test_torch_standalone import port_params
+from tests.test_hybrid import make_family
+from tests.test_torch_standalone import jax_native_or_skip, port_params
 
 CPU = torch.device("cpu")
 
@@ -51,7 +51,7 @@ def _port(records, params, **kw):
     dict(num_iterations=7),
 ])
 def test_hybrid_matches_jax_hybrid_and_mirror(kwargs):
-    _native_or_skip()
+    jax_native_or_skip()
     records = make_family()
     params = Parameters(in_file="<test>", **kwargs)
     pairs = enumerate_pairs(records)
@@ -68,7 +68,7 @@ def test_hybrid_matches_jax_hybrid_and_mirror(kwargs):
 
 def test_work_stealing_more_pairs_than_lanes():
     """15 pairs through 3 lanes: each finished lane is refilled at once."""
-    _native_or_skip()
+    jax_native_or_skip()
     records = make_family(n=6)
     params = Parameters(in_file="<test>", num_iterations=30)
     pairs = enumerate_pairs(records)
@@ -84,7 +84,7 @@ def test_work_stealing_more_pairs_than_lanes():
 def test_update_overflow_uploads_full_planes(monkeypatch):
     """With room for only 2 sparse PSSM updates per lane, lanes overflow
     (count -1) and re-upload their whole plane; the results stay equal."""
-    _native_or_skip()
+    jax_native_or_skip()
     records = make_family()
     params = Parameters(in_file="<test>", num_iterations=40)
     want = _port(records, params)
@@ -105,7 +105,7 @@ def test_update_overflow_uploads_full_planes(monkeypatch):
 
 @pytest.mark.parametrize("switch", ["LARA_DP_GRID", "LARA_DP_RESIDENT"])
 def test_dp_variants_give_the_same_results(monkeypatch, switch):
-    _native_or_skip()
+    jax_native_or_skip()
     records = make_family()
     params = Parameters(in_file="<test>", num_iterations=40, matching=0)
     want = _port(records, params)
@@ -118,7 +118,7 @@ def test_dp_variants_give_the_same_results(monkeypatch, switch):
 def test_turns_count_batched_iterations():
     """One lane per pair and no refill: the loop turns as often as the
     longest pair iterates."""
-    _native_or_skip()
+    jax_native_or_skip()
     records = make_family()
     params = Parameters(in_file="<test>", num_iterations=25)
     hybrid_driver.turns = 0

@@ -9,19 +9,107 @@ AST scan of every port module and of ``chip_smoke.py`` finds no import of
 runs the CLI on every path loads neither JAX nor ``lara_tpu``; and the
 copies give what the originals give on the same inputs, with zero
 tolerance.
+
+The port's tests compare against the JAX package's native libraries, which
+that package builds in place on first use, with no lock across processes:
+test workers that build one library at once can load a half-written file
+or see g++ fail.  So this module, which every worker imports while it
+collects the tests, first builds all four of them once (:func:`build_jax_native`,
+under a file lock, each into a temporary file renamed into place), before
+any test runs; the JAX package then finds them up to date.
 """
 
 import ast
 import dataclasses
+import fcntl
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "lara_tpu_torch")
+JAX_NATIVE = os.path.join(REPO, "lara_tpu", "native")
+#: the JAX package's native libraries, each with the sources it links
+#: (``lara_tpu/native/{blossom,lagrange,baseline}.py``,
+#: ``lara_tpu/solver/interactions.py``)
+JAX_LIBRARIES = {"blossom": (), "lagrange_host": ("blossom",),
+                 "baseline": ("lagrange_host", "blossom"),
+                 "model_build": ()}
+
+
+def _stale_jax_libraries():
+    """{target: sources} of the JAX libraries missing or older than a
+    source: the test of ``lara_tpu.native.shared_library``."""
+    stale = {}
+    for name, extra in JAX_LIBRARIES.items():
+        sources = [os.path.join(JAX_NATIVE, "src", f"{n}.cpp")
+                   for n in (name, *extra)]
+        target = os.path.join(JAX_NATIVE, "lib", f"lib{name}.so")
+        if not os.path.exists(target) or any(
+                os.path.getmtime(target) < os.path.getmtime(src)
+                for src in sources):
+            stale[target] = sources
+    return stale
+
+
+def build_jax_native():
+    """Build the JAX package's native libraries that are missing or stale,
+    with the g++ command of ``lara_tpu.native.shared_library``, all at once
+    under an exclusive lock on a file in the temporary directory, each into
+    a temporary file renamed into place, so that no process ever loads a
+    partial library.  Returns None when all four are up to date, or why
+    they cannot be built (no g++); raises if g++ fails."""
+    if not _stale_jax_libraries():
+        return None
+    if shutil.which("g++") is None:
+        return "g++ is not on PATH"
+    lock = os.path.join(tempfile.gettempdir(), "lara_tpu_native_build.lock")
+    with open(lock, "a") as handle:
+        fcntl.flock(handle, fcntl.LOCK_EX)
+        try:
+            stale = _stale_jax_libraries()  # another process may have built
+            os.makedirs(os.path.join(JAX_NATIVE, "lib"), exist_ok=True)
+            procs = []
+            for target, sources in stale.items():
+                tmp = f"{target}.{os.getpid()}.tmp"
+                procs.append((target, tmp, subprocess.Popen(
+                    ["g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-o",
+                     tmp, *sources], stderr=subprocess.PIPE, text=True)))
+            failed = []
+            for target, tmp, proc in procs:
+                err = proc.communicate(timeout=300)[1]
+                if proc.returncode == 0:
+                    os.replace(tmp, target)
+                else:
+                    failed.append(f"{target}: {err[-2000:]}")
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+        finally:
+            fcntl.flock(handle, fcntl.LOCK_UN)
+    if failed:
+        raise RuntimeError("g++ failed for " + "\n".join(failed))
+    return None
+
+
+try:
+    _JAX_NATIVE_MISSING, _JAX_NATIVE_ERROR = build_jax_native(), None
+except (OSError, RuntimeError, subprocess.TimeoutExpired) as exc:
+    _JAX_NATIVE_MISSING, _JAX_NATIVE_ERROR = None, exc
+
+
+def jax_native_or_skip():
+    """For a test that needs the JAX package's native libraries: skip when
+    there is no g++ (and say so), fail when their build failed."""
+    if _JAX_NATIVE_MISSING:
+        pytest.skip(f"the JAX package's native libraries: "
+                    f"{_JAX_NATIVE_MISSING}")
+    if _JAX_NATIVE_ERROR is not None:
+        raise _JAX_NATIVE_ERROR
 
 
 def _port_files():
@@ -217,22 +305,19 @@ def test_native_baseline_equals_the_original():
     """The port's native build (its own sources, its own build directory)
     solves one pair as the JAX package's does."""
     from lara_tpu.io.records import RnaRecord as JaxRecord
-    from lara_tpu.native import NativeBuildError as JaxBuildError
     from lara_tpu.native import baseline as jax_baseline
     from lara_tpu.params import Parameters
     from lara_tpu_torch.io.records import RnaRecord
     from lara_tpu_torch.native import _LIB_DIR, NativeBuildError
     from lara_tpu_torch.native import baseline
 
+    jax_native_or_skip()
     pair = [("a", "GGGAAAGGGAAACCCAAACCC", [(0, 20, 3.0), (6, 14, 2.0)]),
             ("b", "GGGAAAGGGAAACCCAAACC", [(0, 19, 3.0), (1, 18, 1.0)])]
     params = Parameters(in_file="<test>", num_iterations=40)
-    try:
-        want = jax_baseline.solve_pair(
-            *(JaxRecord(name=n, sequence=s, fixed_edges=e)
-              for n, s, e in pair), params, (0, 1))
-    except JaxBuildError:
-        pytest.skip("no C++ toolchain")
+    want = jax_baseline.solve_pair(
+        *(JaxRecord(name=n, sequence=s, fixed_edges=e)
+          for n, s, e in pair), params, (0, 1))
     try:
         got = baseline.solve_pair(
             *(RnaRecord(name=n, sequence=s, fixed_edges=e)
@@ -242,3 +327,14 @@ def test_native_baseline_equals_the_original():
     assert dataclasses.astuple(got) == dataclasses.astuple(want)
     assert os.path.commonpath([_LIB_DIR, PORT]) == PORT
     assert os.path.exists(os.path.join(_LIB_DIR, "libbaseline.so"))
+
+
+def test_jax_native_libraries_are_built():
+    """Collecting this module left the JAX package's four native libraries
+    up to date, and each loads."""
+    import ctypes
+
+    jax_native_or_skip()
+    assert _stale_jax_libraries() == {}
+    for name in JAX_LIBRARIES:
+        ctypes.CDLL(os.path.join(JAX_NATIVE, "lib", f"lib{name}.so"))
