@@ -38,7 +38,18 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    kernels the run is meant to launch.  16S runs again under
    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
    under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
-   ``LARA_PIPELINE=1`` in turns; each must write the same bytes;
+   ``LARA_PIPELINE=1`` in turns; each must write the same bytes.  The
+   fused runs of one chunk must launch K1, K2 and K3 exactly once per
+   iteration of each shard's dispatches.  tRNA and 16S run again with
+   each chunk's lanes split over two shards of one card (``[cuda:0,
+   cuda:0]``, ``lara_tpu_torch.parallel.mesh``; and over every card where
+   there are several), in turns with one device, each with the one-device
+   run's bytes and pairs; the tRNA CLI runs as one process and as two
+   processes of a gloo group on the card (the JAX package's coordinator
+   variables), with the same bytes; and the repository's families
+   (``benchmark/data/{trna,rrna5s,srp}``) run with ``--predict builtin
+   --msa``, every pair against native, SPS and MCC printed by the port's
+   ``evaluate``;
 4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks: the
    unprofiled wall per iteration, and from ``torch.profiler`` the device
    busy share, kernels per iteration and the K1/K2/K3 time; K3 is held
@@ -416,13 +427,15 @@ def _native_check(name, store, pairs, params, run, library, threads):
 
 
 def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
-               native_threads=1, same_as=None):
-    """One run of the port's CLI path on a family.  The launch counts are
-    set to 0 just before the run and read just after it; the kernels that
-    launched must be exactly ``expect``.  Every pair is checked against the
-    native C++ baseline (on ``native_threads`` threads), or, with
-    ``same_as``, the library bytes against that library.  Returns (counts,
-    library, wall seconds)."""
+               native_threads=1, same_as=None, devices=None, **params_kw):
+    """One run of the port's CLI path on a family (``records``, or the
+    path of an input file), on ``dev`` or split over ``devices``.  The
+    launch counts are set to 0 just before the run and read just after it;
+    the kernels that launched must be exactly ``expect``.  Every pair is
+    checked against the native C++ baseline (on ``native_threads``
+    threads), or, with ``same_as`` (an earlier run's (library, results)),
+    the library bytes against that library and every pair against that
+    run's.  Returns (counts, library, wall seconds, run)."""
     import torch
 
     from lara_tpu_torch import _build, app
@@ -434,17 +447,22 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     env = env or {}
     name = f"{label} -m {matching}" + "".join(f" {k}={v}"
                                               for k, v in env.items())
-    path = os.path.join(tmp, f"{label}.ebpseq")
-    with open(path, "w") as handle:
-        write_ebpseq(records, handle)
+    if devices:
+        name += f" over {len(devices)} shards"
+    if isinstance(records, str):
+        path = records
+    else:
+        path = os.path.join(tmp, f"{label}.ebpseq")
+        with open(path, "w") as handle:
+            write_ebpseq(records, handle)
     params = Parameters(in_file=path, out_file=os.path.join(tmp, f"{label}.lib"),
-                        matching=matching)
+                        matching=matching, **params_kw)
     os.environ.update(env)
     try:
         _build.reset_launches()
         hybrid_driver.turns = 0
         start = time.perf_counter()
-        run = app.run(params, dev)
+        run = app.run(params, dev, devices)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         launches = dict(_build.launches)
@@ -463,10 +481,11 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     pairs = app.enumerate_pairs(store)
     iters = [r.iterations for r in run.results]
     if same_as is not None:
-        if library != same_as or len(run.results) != len(pairs):
-            raise AssertionError(f"{name}: library differs from the one of "
-                                 "the run before")
-        checked = "the same library bytes as the run before"
+        if library != same_as[0] or _pair_keys(run.results) != _pair_keys(
+                same_as[1]) or len(run.results) != len(pairs):
+            raise AssertionError(f"{name}: library or pairs differ from the "
+                                 "ones of the run before")
+        checked = "the same library bytes and pairs as the run before"
     else:
         native_s, native_n = _native_check(name, store, pairs, params, run,
                                            library, native_threads)
@@ -489,7 +508,12 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
         print(f"    native C++ baseline, one host thread, {timed}: "
               f"{native_s:.3f} s, {native_n / native_s:.3f} alignments/s")
     print(f"    launches: {launches}")
-    return launches, library, wall
+    return launches, library, wall, run
+
+
+def _pair_keys(results):
+    return sorted((r.seq_indices, r.columns, r.score, r.iterations,
+                   r.best_upper, r.best_lower) for r in results)
 
 
 def _refill_path(family, dev, tmp, expect):
@@ -499,8 +523,8 @@ def _refill_path(family, dev, tmp, expect):
     from lara_tpu_torch.solver import device_driver
 
     device_driver.last_refill = None
-    run, _, _ = _main_path(*family, dev, tmp, expect,
-                           env={"LARA_REFILL": "1", "LARA_MAX_BATCH": "64"})
+    run = _main_path(*family, dev, tmp, expect,
+                     env={"LARA_REFILL": "1", "LARA_MAX_BATCH": "64"})[0]
     stats = device_driver.last_refill
     if stats is None or (stats.pairs, stats.lanes) != (120, 64):
         raise AssertionError(f"the refill did not run as configured: {stats}")
@@ -537,26 +561,29 @@ def _long_path(family, dev, tmp, expect):
     ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (two halves of 14 pairs, 16
     lanes each, through the pipeline on the solver thread's stream) and
     ``LARA_NO_PIPELINE=1`` must write the same library bytes.  Returns the
-    default run's launch counts."""
+    default run's (launch counts, library, wall, run)."""
     walls = {}
     with _pipelined_chunks() as solved:
-        run, library, walls["default"] = _main_path(
-            *family, dev, tmp, expect, native_threads=os.cpu_count() or 1)
+        default = _main_path(*family, dev, tmp, expect,
+                             native_threads=os.cpu_count() or 1)
+        _exact_launches("16S default", default[0], default[3].results, 1)
+        walls["default"] = default[2]
+        same = (default[1], default[3].results)
         if solved:
             raise AssertionError(f"16S default ran the pipeline: {solved}")
-        _, _, walls["split + pipelined"] = _main_path(
+        walls["split + pipelined"] = _main_path(
             *family, dev, tmp, expect,
             env={"LARA_SPLIT_SINGLE": "1", "LARA_PIPELINE": "1"},
-            same_as=library)
+            same_as=same)[2]
         if solved != [(14, True), (14, True)]:
             raise AssertionError(f"16S did not split and pipeline: {solved}")
-    _, _, walls["LARA_NO_PIPELINE=1"] = _main_path(
+    walls["LARA_NO_PIPELINE=1"] = _main_path(
         *family, dev, tmp, expect, env={"LARA_NO_PIPELINE": "1"},
-        same_as=library)
+        same_as=same)[2]
     print("    16S wall: " + ", ".join(f"{k} {v:.3f} s"
                                        for k, v in walls.items())
           + " (pipelined phase times overlap and sum past the wall)")
-    return run
+    return default
 
 
 def _mixed_path(family, dev, tmp, expect):
@@ -569,13 +596,14 @@ def _mixed_path(family, dev, tmp, expect):
     through the solver thread's stream.  Returns the first run's launch
     counts."""
     with _pipelined_chunks() as solved:
-        run, library, wall = _main_path(*family, dev, tmp, expect)
+        run, library, wall, first = _main_path(*family, dev, tmp, expect)
         walls = {"default (serial)": [wall], "LARA_PIPELINE=1": []}
         for key in ("LARA_PIPELINE=1", "default (serial)",
                     "LARA_PIPELINE=1"):
             env = {"LARA_PIPELINE": "1"} if key == "LARA_PIPELINE=1" else {}
             walls[key].append(_main_path(*family, dev, tmp, expect, env=env,
-                                         same_as=library)[2])
+                                         same_as=(library,
+                                                  first.results))[2])
     if len(solved) != 6 or not all(on_stream for _, on_stream in solved):
         raise AssertionError("the pipelined runs did not put 3 chunks each "
                              f"through the solver stream: {solved}")
@@ -583,6 +611,168 @@ def _mixed_path(family, dev, tmp, expect):
         f"{k} " + ", ".join(f"{w:.3f}" for w in v) + " s"
         for k, v in walls.items()))
     return run
+
+
+def _exact_launches(name, launches, results, shards):
+    """Gate: a fused run of one chunk over ``shards`` shards launched K1, K2
+    and K3 exactly once per iteration of each shard's dispatches.  Lane k
+    holds the chunk's pair k (results in task order), the lanes pad to
+    ``device_driver._padded_batch`` and then to a multiple of the shards
+    (padding lanes converge in one iteration), and each shard runs
+    ``ceil(its longest lane / LARA_CHUNK) * LARA_CHUNK`` iterations, at most
+    500.  Returns each shard's iterations."""
+    from lara_tpu_torch.solver import device_driver, device_solver
+
+    lanes = device_driver._padded_batch(len(results), shards)
+    lanes += (-lanes) % shards
+    iters = [r.iterations for r in results] + [1] * (lanes - len(results))
+    per, chunk = lanes // shards, device_solver.dispatch_size()
+    ran = [min(500, -(-max(iters[k * per:(k + 1) * per]) // chunk) * chunk)
+           for k in range(shards)]
+    want = {k: sum(ran) for k in ("gotoh_dp", "gotoh_tb", "matching_rounds")}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launched {got}, expected {want} "
+                             f"({shards} shard(s) of {per} lanes running "
+                             f"{ran} iterations)")
+    return ran
+
+
+def _sharded_path(label, records, dev, tmp, expect, one):
+    """The fused path with each chunk's lanes split over ``[dev, dev]``:
+    two shards on one card, each with its own copy of its lanes, its own
+    thread, stream and dispatch loop.  ``one`` is the one-device run of
+    the family, every pair already equal to the native baseline: the
+    sharded run must write its bytes and give its pairs, with K1, K2 and K3
+    launched exactly once per iteration of each shard.  Then one device
+    and two shards again in turns (two, one, one, two), each with the same
+    bytes.  Returns the first sharded run's launch counts."""
+    same = (one[1], one[3].results)
+    launches, _, wall, run = _main_path(label, records, dev, tmp, expect,
+                                        devices=[dev, dev], same_as=same)
+    ran = _exact_launches(f"{label} over 2 shards", launches, run.results, 2)
+    walls = {"two shards": [wall], "one device": []}
+    for key in ("one device", "one device", "two shards"):
+        devices = [dev, dev] if key == "two shards" else None
+        walls[key].append(_main_path(label, records, dev, tmp, expect,
+                                     devices=devices, same_as=same)[2])
+    print(f"    {label}: shards ran {ran} iterations; wall in turns (two, "
+          "one, one, two): " + "; ".join(
+              f"{k} " + ", ".join(f"{w:.3f}" for w in v) + " s"
+              for k, v in walls.items()))
+    return launches
+
+
+def _two_process_path(path, one, tmp, timeout=300):
+    """``python -m lara_tpu_torch`` on the tRNA family as two processes of
+    one gloo group on this host (the coordinator variables of the JAX
+    package), both on the card, against one process of the same command
+    (``LARA_NO_DISTRIBUTED=1``): each host solves half of the pairs,
+    process 0 alone writes, and both write the bytes of ``one``, the
+    one-device run of this family in this script.  Prints the walls of both commands, from the first
+    start to the last exit, and each process's solve phase.  Every process
+    is killed, with its group, if it outlives ``timeout`` seconds."""
+    import re
+    import signal
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    library, n_pairs = one[1], len(one[3].results)
+
+    def launch(out, **extra):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+                            "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+                            "LARA_NO_DISTRIBUTED")}
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        env.update(extra)
+        return subprocess.Popen(
+            [sys.executable, "-m", "lara_tpu_torch", "-i", path, "-v", "1",
+             "-w", out], env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+    def finish(procs, start):
+        try:
+            errs = [proc.communicate(timeout=timeout)[1] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        wall = time.perf_counter() - start
+        for proc, err in zip(procs, errs):
+            if proc.returncode != 0:
+                raise AssertionError(f"a process exited {proc.returncode}: "
+                                     f"{err[-2000:]}")
+        solve = [float(re.search(r"^  solve +([0-9.]+) s", err,
+                                 re.M).group(1)) for err in errs]
+        return wall, solve, errs
+
+    outs = {}
+    for key in ("one process", "two processes"):
+        out = os.path.join(tmp, f"{key.replace(' ', '-')}.lib")
+        start = time.perf_counter()
+        if key == "one process":
+            procs = [launch(out, LARA_NO_DISTRIBUTED="1")]
+        else:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            procs = [launch(out, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                            JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank))
+                     for rank in range(2)]
+        wall, solve, errs = finish(procs, start)
+        with open(out) as handle:
+            if handle.read() != library:
+                raise AssertionError(f"{key}: library differs from the "
+                                     "one-process run in this script")
+        if key == "two processes" and not (
+                all(f"host shard: {n_pairs // 2}/{n_pairs} pairs" in e
+                    for e in errs)
+                and "non-zero host: process 0 writes" in errs[1]):
+            raise AssertionError("the two processes did not share the pairs "
+                                 "as asked: " + errs[0][-1000:])
+        outs[key] = (wall, solve)
+    print("  tRNA, python -m lara_tpu_torch, the same library bytes: " + "; ".join(
+        f"{k}: command wall {w:.3f} s, solve phase "
+        + ", ".join(f"{t:.3f}" for t in solve) + " s"
+        for k, (w, solve) in outs.items()))
+
+
+#: SPS and MCC of the TPU run in ``benchmark/RESULTS.md:66-68`` (a table
+#: printed beside the port's, not a gate)
+RESULTS_MD = {"trna": (0.9547, 0.9413), "rrna5s": (0.9837, 0.9895),
+              "srp": (0.9900, 0.9938)}
+
+
+def _quality_path(dev, tmp, expect):
+    """The repository's three families (``benchmark/data/*/unaligned.fa``,
+    ragged lengths, structures predicted by the built-in folder) through
+    the CLI path with ``--predict builtin --msa``: every pair equal to the
+    native baseline and the library bytes to the native library, then SPS
+    and MCC (built-in consensus) of the port's MSA against the curated
+    ``reference.fa`` by the port's ``evaluate``.  Returns the launch counts
+    summed over the families."""
+    from lara_tpu_torch import evaluate
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(expect, 0)
+    for family in RESULTS_MD:
+        data = os.path.join(here, "benchmark", "data", family)
+        msa = os.path.join(tmp, f"{family}.msa.fa")
+        launches = _main_path(family, os.path.join(data, "unaligned.fa"),
+                              dev, tmp, expect, predict="builtin",
+                              msa_file=msa)[0]
+        for name in expect:
+            total[name] += launches[name]
+        reference = os.path.join(data, "reference.fa")
+        sps = evaluate.sps(reference, msa)
+        mcc = evaluate.mcc(reference, msa, "builtin")
+        print(f"    {family}: SPS {sps:.4f}, MCC {mcc:.4f} (port, "
+              f"evaluate against reference.fa); benchmark/RESULTS.md, TPU "
+              f"run: SPS {RESULTS_MD[family][0]:.4f}, MCC "
+              f"{RESULTS_MD[family][1]:.4f}")
+    return total
 
 
 @contextlib.contextmanager
@@ -682,7 +872,7 @@ def main() -> int:
     from lara_tpu_torch import _build
     from lara_tpu_torch.workloads import make_family, make_long_family
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -738,33 +928,58 @@ def main() -> int:
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as tmp:
         print("main path: lara_tpu_torch.app.run, default parameters:")
+        one = {}
         for label, records in (trna, rrna):
-            run, _, _ = _main_path(label, records, dev, tmp, fused)
+            one[label] = _main_path(label, records, dev, tmp, fused)
+            _exact_launches(label, one[label][0], one[label][3].results, 1)
             for name in fused:
-                launches[name] += run[name]
+                launches[name] += one[label][0][name]
         print("lane refill:")
         run = _refill_path(trna, dev, tmp, fused)
         for name in fused:
             launches[name] += run[name]
         print("16S, one 1536x1536 bucket:")
-        run = _long_path(long16, dev, tmp, fused)
+        one[long16[0]] = _long_path(long16, dev, tmp, fused)
         for name in fused:
-            launches[name] += run[name]
+            launches[name] += one[long16[0]][0][name]
         print("mixed lengths, three buckets, serial and pipelined:")
         run = _mixed_path(("mixed-trna+300nt", trna[1] + rrna[1]), dev, tmp,
                           fused)
         for name in fused:
             launches[name] += run[name]
+        print("each chunk's lanes split over [cuda:0, cuda:0] "
+              "(lara_tpu_torch.parallel.mesh):")
+        for label, records in (trna, long16):
+            run = _sharded_path(label, records, dev, tmp, fused, one[label])
+            for name in fused:
+                launches[name] += run[name]
+        if torch.cuda.device_count() > 1:
+            cards = [torch.device("cuda", k)
+                     for k in range(torch.cuda.device_count())]
+            run = _main_path(*trna, dev, tmp, fused, devices=cards,
+                             same_as=(one[trna[0]][1],
+                                      one[trna[0]][3].results))[0]
+            for name in fused:
+                launches[name] += run[name]
+        else:
+            print("  one card: no number over several cards was measured")
+        print("two hosts' processes over gloo, on one card:")
+        _two_process_path(os.path.join(tmp, f"{trna[0]}.ebpseq"),
+                          one[trna[0]], tmp)
+        print("the repository's families, --predict builtin --msa:")
+        run = _quality_path(dev, tmp, fused)
+        for name in fused:
+            launches[name] += run[name]
         print("hybrid backend (host matching):")
         _main_path(*trna, dev, tmp, ("gotoh_dp", "gotoh_tb"), matching=0)
-        run, _, _ = _main_path(*rrna, dev, tmp, ("gotoh_resident",),
-                               matching=12, env={"LARA_DP_RESIDENT": "1"})
+        run = _main_path(*rrna, dev, tmp, ("gotoh_resident",), matching=12,
+                         env={"LARA_DP_RESIDENT": "1"})[0]
         launches["gotoh_resident"] = run["gotoh_resident"]
         print("fused path, grid-stepped DP kernels:")
-        run, _, _ = _main_path(
+        run = _main_path(
             *trna, dev, tmp,
             ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds"),
-            env={"LARA_DP_GRID": "1"})
+            env={"LARA_DP_GRID": "1"})[0]
         launches["gotoh_grid_dp"] = run["gotoh_grid_dp"]
         launches["gotoh_grid_tb"] = run["gotoh_grid_tb"]
     print(f"  kernel launches, each from the runs meant to launch it: "

@@ -166,13 +166,23 @@ def library() -> ctypes.CDLL:
 
 def require(t, name: str, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: the kernels read raw pointers."""
+    ``device``, and ``device`` is the calling thread's current card: the
+    kernels read raw pointers, and the launchers work against the current
+    card (its stream, its shared-memory limits)."""
+    import torch
+
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or t.device != device or not t.is_contiguous():
         raise ValueError(
             f"{name}: need a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
             f"on {t.device} (contiguous={t.is_contiguous()})")
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise ValueError(
+            f"{name}: the tensor is on {t.device} but this thread's current "
+            f"card is cuda:{current}; launch under torch.cuda.device"
+            f"({t.device})")
 
 
 def stream_of(t) -> int:

@@ -1,7 +1,7 @@
 """Whole-program flow of the port: read inputs -> solve all pairs -> write
 the library (``/root/reference/src/lara.cpp:44-61``).
 
-Counterpart of :func:`lara_tpu.app.run` on one device.  Pair enumeration
+Counterpart of :func:`lara_tpu.app.run`.  Pair enumeration
 mirrors ``solve`` (``subgradient_solver.hpp:112-120``): every unordered pair
 of input records, with the longer sequence first (ties keep the original
 index order, per the ``>=`` comparison).
@@ -10,13 +10,13 @@ index order, per the ``>=`` comparison).
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
-from lara_tpu_torch._device import resolve_device
 from lara_tpu_torch.io.records import InputStorage
 from lara_tpu_torch.io.writers import OutputLibrary
+from lara_tpu_torch.parallel import mesh
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.solver.reference_driver import PairResult
 from lara_tpu_torch.utils import log, timing
@@ -51,25 +51,55 @@ def load_input(params: Parameters) -> InputStorage:
 
 
 class Run(NamedTuple):
-    library: OutputLibrary
-    results: List[PairResult]  # in solve order
+    library: OutputLibrary  # every pair (of every host)
+    results: List[PairResult]  # this host's pairs, in solve order
 
 
-def run(params: Parameters, device: torch.device = None) -> Run:
+def run(params: Parameters, device: torch.device = None,
+        devices: Sequence[torch.device] = None) -> Run:
     """Solve every pair of the input.  ``--backend device`` (the default)
-    runs on ``device``, or on the one ``LARA_PLATFORM`` selects;
-    ``--backend reference`` runs the NumPy scalar mirror.  With
-    ``LARA_PROFILE=<dir>`` the solve is traced with ``torch.profiler``
-    into ``<dir>``."""
+    runs on ``devices``, else on ``[device]``, else on every device of this
+    process (:func:`lara_tpu_torch.parallel.mesh.pair_devices`: each
+    visible card, or the CPU under ``LARA_PLATFORM=cpu``), a chunk's lanes
+    split over them; ``--backend reference`` runs the NumPy scalar mirror.
+    With ``LARA_PROFILE=<dir>`` the solve is traced with ``torch.profiler``
+    into ``<dir>``.
+
+    Several hosts (``lara_tpu/app.py:96-166``): with the device backend and
+    the coordinator variables set (:func:`mesh.distributed_init`), each
+    process solves a strided share of the pairs, the results are gathered
+    to every process, and process 0 alone writes the library and the
+    ``--msa`` file.  The returned ``library`` holds every pair, and
+    ``results`` this host's."""
     time_start = time.monotonic()
     timing.reset()
-    if params.backend == "device" and device is None:
-        device = resolve_device()
+    multihost = False
+    if params.backend == "device":
+        try:
+            multihost = mesh.distributed_init()
+        except (RuntimeError, ValueError) as exc:
+            log(1, f"   * torch.distributed unavailable ({exc}); single host")
+    try:
+        if params.backend == "device":
+            devices = mesh.pair_devices(
+                devices if devices is not None
+                else None if device is None else [device])
+        return _run(params, devices, multihost, time_start)
+    finally:
+        mesh.distributed_shutdown()
+
+
+def _run(params: Parameters, devices, multihost: bool,
+         time_start: float) -> Run:
     log(1, "1) Parse parameters...")
     with timing.phase("read input"):
         store = load_input(params)
     outlib = OutputLibrary(store, params.out_format)
     pairs = enumerate_pairs(store)
+    if multihost:
+        n_all = len(pairs)
+        pairs = mesh.process_pair_shard(pairs)
+        log(1, f"   * host shard: {len(pairs)}/{n_all} pairs")
     log(1, f"3) Solve {len(pairs)} structural alignments...")
 
     if params.backend == "reference":
@@ -81,23 +111,33 @@ def run(params: Parameters, device: torch.device = None) -> Run:
     else:
         from lara_tpu_torch.solver import device_driver
 
-        solved = device_driver.solve_all(store, pairs, params, device)
+        solved = device_driver.solve_all(store, pairs, params, devices)
     results = []
     with timing.maybe_trace(), timing.phase("solve"):
         for result in solved:
-            outlib.add_alignment(result.seq_indices, result.columns,
-                                 result.score)
+            if not multihost:
+                outlib.add_alignment(result.seq_indices, result.columns,
+                                     result.score)
             results.append(result)
+        if multihost:
+            with timing.phase("gather results (hosts)"):
+                for (ia, ib, score, cols) in mesh.gather_results(
+                        [(r.seq_indices[0], r.seq_indices[1], r.score,
+                          r.columns) for r in results]):
+                    outlib.add_alignment((ia, ib), cols, score)
+    writer = not multihost or torch.distributed.get_rank() == 0
 
     log(1, "4) Write results...")
     if params.prewarm:
         log(0, "   * --prewarm: kernels built for these input shapes; no "
                "output written")
+    elif not writer:
+        log(1, "   * non-zero host: process 0 writes the library")
     else:
         with timing.phase("write results"):
             outlib.print(params.out_file if params.out_file else None)
 
-    if params.msa_file and not params.prewarm:
+    if params.msa_file and not params.prewarm and writer:
         from lara_tpu_torch import msa as msa_mod
 
         log(1, "5) Assemble multiple alignment...")

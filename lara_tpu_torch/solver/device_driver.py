@@ -1,7 +1,6 @@
-"""Host orchestration of the batched solver on one device.
+"""Host orchestration of the batched solver on one device or several.
 
-Counterpart of the single-device part of
-:mod:`lara_tpu.solver.device_driver`, with the same knobs:
+Counterpart of :mod:`lara_tpu.solver.device_driver`, with the same knobs:
 
 * pairs are bucketed by padded (LA, LB) class and each bucket is cut into
   chunks under a cell budget (``LARA_MAX_BATCH`` caps the chunk width);
@@ -24,7 +23,13 @@ Counterpart of the single-device part of
   depth 2, results in task order;
 * one device byte budget (:data:`DEVICE_BUDGET`, against the port's own
   estimate :func:`_chunk_est_bytes`) gates the pipeline, bounds the bytes
-  left undrained in it, and halves a chunk too large to solve at once.
+  left undrained in it, and halves a chunk too large to solve at once;
+* several devices (``lara_tpu/solver/device_driver.py:720-721,837-846``):
+  a chunk of more than one pair pads to at least one lane per device and
+  its lanes are split over the devices
+  (:func:`lara_tpu_torch.parallel.mesh.solve_batch_sharded`); the edge
+  filter, the model upload, lane refill and the hybrid backend run on the
+  first device, as the JAX package runs them on its default device.
 
 The scheduling changes when work runs, never the results: every lane's
 arithmetic is independent of the others, and every carry write is masked
@@ -35,8 +40,6 @@ go to the hybrid backend (:mod:`lara_tpu_torch.solver.hybrid_driver`),
 whose host bookkeeping is the native ``lagrange_host`` library; a failed
 build of it raises :class:`lara_tpu_torch.native.NativeBuildError`.  Nothing is
 handed to the scalar mirror behind the caller's back.
-
-Not ported yet (ROADMAP): batches split over several devices.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from lara_tpu_torch.ops import gotoh
+from lara_tpu_torch.parallel import mesh
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.scoring.ribosum import encode_rna5
 from lara_tpu_torch.solver import device_solver, interactions
@@ -106,6 +110,7 @@ class _Prepared(NamedTuple):
     scan_steps: int
     est_bytes: int
     ready: object  # CUDA event recorded after the upload, None on the CPU
+    devices: list  # the batch is on devices[0] and solved over all of them
 
 
 def buckets_of(store, pairs: Sequence[Tuple[int, int]]
@@ -154,11 +159,13 @@ def _chunk_dcap(models) -> int:
 
 
 def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
-              device: torch.device) -> Iterator[PairResult]:
-    """Solve every pair on ``device``; returns an iterator of one
-    :class:`PairResult` per pair, in task order.  A bad ``LARA_CHUNK`` or a
-    failed native build raises here, before any work, not at the first
-    ``next``."""
+              devices: Sequence[torch.device]) -> Iterator[PairResult]:
+    """Solve every pair on ``devices`` (one or more, see
+    :func:`lara_tpu_torch.parallel.mesh.pair_devices`); returns an iterator
+    of one :class:`PairResult` per pair, in task order.  A bad
+    ``LARA_CHUNK`` or a failed native build raises here, before any work,
+    not at the first ``next``."""
+    devices = list(devices)
     host_matching = params.matching == 0 or params.matching > 8
     if host_matching or os.environ.get("LARA_SOLVER", "") == "hybrid":
         from lara_tpu_torch.native import lagrange
@@ -171,18 +178,21 @@ def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
         else:
             log(2, "   * hybrid backend: device DP + native host "
                    "bookkeeping")
-        return hybrid_driver.solve_all(store, pairs, params, device)
+        return hybrid_driver.solve_all(store, pairs, params, devices[0])
     device_solver.dispatch_size()  # raises on a bad LARA_CHUNK
-    return _run_tasks(store, _plan_tasks(store, pairs), params, device)
+    return _run_tasks(store, _plan_tasks(store, pairs, len(devices)), params,
+                      devices)
 
 
-def _padded_batch(b: int) -> int:
-    """Lanes of a chunk of ``b`` pairs: the next power of two (one device;
-    a multi-device batch also floors it at the device count)."""
-    return 1 << max(0, b - 1).bit_length()
+def _padded_batch(b: int, n_dev: int = 1) -> int:
+    """Lanes of a chunk of ``b`` pairs: the next power of two, floored at
+    the device count where a batch of more than one pair is split over
+    several devices (``lara_tpu/solver/device_driver.py:721``)."""
+    floor = n_dev if n_dev > 1 and b > 1 else 1
+    return 1 << (max(b, floor) - 1).bit_length()
 
 
-def _plan_tasks(store, pairs) -> List[_Task]:
+def _plan_tasks(store, pairs, n_dev: int = 1) -> List[_Task]:
     """Buckets cut into chunks, or into one refill task each under
     ``LARA_REFILL``; a lone long-pair chunk split in two."""
     max_batch_cap = int(os.environ.get("LARA_MAX_BATCH", DEFAULT_MAX_BATCH))
@@ -199,22 +209,23 @@ def _plan_tasks(store, pairs) -> List[_Task]:
         for start in range(0, len(bucket_pairs), max_batch):
             tasks.append(_Task("chunk", la_max, lb_max,
                                bucket_pairs[start:start + max_batch]))
-    return _split_single(tasks)
+    return _split_single(tasks, n_dev)
 
 
-def _split_single(tasks: List[_Task]) -> List[_Task]:
+def _split_single(tasks: List[_Task], n_dev: int = 1) -> List[_Task]:
     """Under ``LARA_SPLIT_SINGLE=1``, a single chunk split at its midpoint,
     so that the pipeline (``LARA_PIPELINE=1``) can hide half 2's
     preparation and half 1's download behind device work
     (``lara_tpu/solver/device_driver.py:141-163``).
-    Unset means no split on one device, unlike the JAX package, which
-    splits long pairs (``LA * LB >= 512**2``) by default: on an H100 the
-    16S halves run one after the other at K1's batch-insensitive cost, and
-    the split made the wall 1.8-2.4x longer (PERF.md).  Only where both
-    halves pad to the same batch (28 -> 14 + 14, 16 lanes each; 9 -> 5 + 4
-    would pad to 8 + 4).  On one device the padded batch is the next power
-    of two; the multi-device slice must floor both halves at the device
-    count before it compares them."""
+    Unset means no split, unlike the JAX package, which splits long pairs
+    (``LA * LB >= 512**2``) by default: on an H100 the 16S halves run one
+    after the other at K1's batch-insensitive cost, and the split made the
+    wall 1.8-2.4x longer (PERF.md).  Only where both halves pad to the same
+    batch (28 -> 14 + 14, 16 lanes each; 9 -> 5 + 4 would pad to 8 + 4),
+    and together to no more lanes than the unsplit chunk: over ``n_dev``
+    devices each half is floored at the device count (6 pairs over 8
+    devices: 8 lanes unsplit, 8 + 8 split), a fault the JAX package's
+    split has (``ADVICE.md:3``)."""
     if len(tasks) != 1 or tasks[0].kind != "chunk" \
             or os.environ.get("LARA_SPLIT_SINGLE") != "1" \
             or os.environ.get("LARA_NO_PIPELINE"):
@@ -222,8 +233,9 @@ def _split_single(tasks: List[_Task]) -> List[_Task]:
     task = tasks[0]
     chunk = task.pairs
     mid = (len(chunk) + 1) // 2
-    if len(chunk) >= 4 \
-            and _padded_batch(mid) == _padded_batch(len(chunk) - mid):
+    half = _padded_batch(mid, n_dev)
+    if len(chunk) >= 4 and half == _padded_batch(len(chunk) - mid, n_dev) \
+            and 2 * half <= _padded_batch(len(chunk), n_dev):
         return [task._replace(pairs=chunk[:mid]),
                 task._replace(pairs=chunk[mid:])]
     return tasks
@@ -240,22 +252,22 @@ def _pipeline_on() -> bool:
 
 
 def _run_tasks(store, tasks: List[_Task], params: Parameters,
-               device: torch.device) -> Iterator[PairResult]:
+               devices: List[torch.device]) -> Iterator[PairResult]:
     if len(tasks) > 1 and _pipeline_on():
-        yield from _pipeline(store, tasks, params, device)
+        yield from _pipeline(store, tasks, params, devices)
         return
     for task in tasks:
         if task.kind == "refill":
-            yield from _run_refill(store, task, params, device)
+            yield from _run_refill(store, task, params, devices)
         else:
             models, _ = _filter_and_build(store, task.pairs, params,
-                                          task.la_max, task.lb_max, device)
+                                          task.la_max, task.lb_max, devices[0])
             yield from _solve_models(task.pairs, models, params, task.la_max,
-                                     task.lb_max, device)
+                                     task.lb_max, devices)
 
 
 def _pipeline(store, tasks: List[_Task], params: Parameters,
-              device: torch.device) -> Iterator[PairResult]:
+              devices: List[torch.device]) -> Iterator[PairResult]:
     """The cross-chunk pipeline (the reference's workers never idle,
     ``subgradient_solver.hpp:206-331``; ``lara_tpu/solver/
     device_driver.py:176-225``).  The kernels launch on the calling
@@ -264,9 +276,9 @@ def _pipeline(store, tasks: List[_Task], params: Parameters,
     event recorded at the end of the solve.  A worker's error is raised
     here, when its chunk's results are read."""
     solver_stream = download_stream = None
-    if device.type == "cuda":
-        solver_stream = torch.cuda.Stream(device)
-        download_stream = torch.cuda.Stream(device)
+    if devices[0].type == "cuda":
+        solver_stream = torch.cuda.Stream(devices[0])
+        download_stream = torch.cuda.Stream(devices[0])
     with ThreadPoolExecutor(max_workers=1) as solver_thread, \
             ThreadPoolExecutor(max_workers=1) as download_thread:
         pending = deque()  # (download future, est bytes), in task order
@@ -274,7 +286,7 @@ def _pipeline(store, tasks: List[_Task], params: Parameters,
             if task.kind == "refill":
                 while pending:
                     yield from pending.popleft()[0].result()
-                yield from _run_refill(store, task, params, device)
+                yield from _run_refill(store, task, params, devices)
                 continue
             # bound the undrained bytes before the next upload; one chunk
             # may stay pending whatever its size, so that a chunk above the
@@ -282,7 +294,7 @@ def _pipeline(store, tasks: List[_Task], params: Parameters,
             while len(pending) > 1 \
                     and sum(est for _, est in pending) > DEVICE_BUDGET:
                 yield from pending.popleft()[0].result()
-            prep = _prepare_chunk(store, task, params, device)
+            prep = _prepare_chunk(store, task, params, devices)
             if isinstance(prep, _Prepared):
                 while len(pending) >= 2:
                     yield from pending.popleft()[0].result()
@@ -297,38 +309,39 @@ def _pipeline(store, tasks: List[_Task], params: Parameters,
                 while pending:
                     yield from pending.popleft()[0].result()
                 yield from _solve_models(task.pairs, prep, params,
-                                         task.la_max, task.lb_max, device)
+                                         task.la_max, task.lb_max, devices)
         while pending:
             yield from pending.popleft()[0].result()
 
 
 def _prepare_chunk(store, task: _Task, params: Parameters,
-                   device: torch.device):
+                   devices: List[torch.device]):
     """Pipeline front half: filter + build + pack + upload.  Returns a
     :class:`_Prepared`, or the models of a chunk whose estimate is above
     :data:`DEVICE_BUDGET` (the caller solves it outside the pipeline)."""
     models, _ = _filter_and_build(store, task.pairs, params, task.la_max,
-                                  task.lb_max, device)
+                                  task.lb_max, devices[0])
     dcap = _chunk_dcap(models)
     if len(models) > 1 and _chunk_est_bytes(
             len(models), task.la_max, task.lb_max, dcap) > DEVICE_BUDGET:
         return models
-    return _prepare(task.pairs, models, task.la_max, task.lb_max, device,
+    return _prepare(task.pairs, models, task.la_max, task.lb_max, devices,
                     dcap)
 
 
-def _prepare(chunk, models, la_max: int, lb_max: int, device: torch.device,
-             dcap: int) -> _Prepared:
-    batch, scan_steps = _pack_models(models, la_max, lb_max, device, dcap)
+def _prepare(chunk, models, la_max: int, lb_max: int,
+             devices: List[torch.device], dcap: int) -> _Prepared:
+    batch, scan_steps = _pack_models(models, la_max, lb_max, devices[0],
+                                     dcap, len(devices))
     ready = None
-    if device.type == "cuda":
+    if devices[0].type == "cuda":
         ready = torch.cuda.Event()
         ready.record()
     return _Prepared(chunk=chunk, models=models, batch=batch, la_max=la_max,
                      lb_max=lb_max, scan_steps=scan_steps,
                      est_bytes=_chunk_est_bytes(len(models), la_max, lb_max,
                                                 dcap),
-                     ready=ready)
+                     ready=ready, devices=devices)
 
 
 def _solve_on(stream, prep: _Prepared, params: Parameters):
@@ -370,7 +383,7 @@ def _postprocess(packed, s: int, chunk, models, params: Parameters
 
 
 def _solve_models(chunk, models, params: Parameters, la_max: int,
-                  lb_max: int, device: torch.device
+                  lb_max: int, devices: List[torch.device]
                   ) -> Iterator[PairResult]:
     """Solve one chunk here, in halves while its estimate is above twice
     :data:`DEVICE_BUDGET` (the long-pair memory guard,
@@ -381,11 +394,11 @@ def _solve_models(chunk, models, params: Parameters, la_max: int,
             > 2 * DEVICE_BUDGET:
         mid = b // 2
         yield from _solve_models(chunk[:mid], models[:mid], params, la_max,
-                                 lb_max, device)
+                                 lb_max, devices)
         yield from _solve_models(chunk[mid:], models[mid:], params, la_max,
-                                 lb_max, device)
+                                 lb_max, devices)
         return
-    prep = _prepare(chunk, models, la_max, lb_max, device, dcap)
+    prep = _prepare(chunk, models, la_max, lb_max, devices, dcap)
     result = _run_solve(prep, params)
     with timing.phase("result download (host)"):
         packed, s = _download_result(result, params)
@@ -393,7 +406,7 @@ def _solve_models(chunk, models, params: Parameters, la_max: int,
 
 
 def _run_refill(store, task: _Task, params: Parameters,
-                device: torch.device) -> Iterator[PairResult]:
+                devices: List[torch.device]) -> Iterator[PairResult]:
     """Solve a bucket wider than its batch with chunk-boundary lane refill:
     after every dispatch the finished lanes are harvested from one packed
     download and every free lane, padding lanes included, takes the next
@@ -410,7 +423,7 @@ def _run_refill(store, task: _Task, params: Parameters,
     models = []
     for start in range(0, len(bucket_pairs), window):
         built, _ = _filter_and_build(store, bucket_pairs[start:start + window],
-                                     params, la_max, lb_max, device)
+                                     params, la_max, lb_max, devices[0])
         models.extend(built)
     dcap = _chunk_dcap(models)
     if _chunk_est_bytes(window, la_max, lb_max, dcap) > 2 * DEVICE_BUDGET:
@@ -418,17 +431,18 @@ def _run_refill(store, task: _Task, params: Parameters,
         for start in range(0, len(bucket_pairs), window):
             yield from _solve_models(
                 bucket_pairs[start:start + window],
-                models[start:start + window], params, la_max, lb_max, device)
+                models[start:start + window], params, la_max, lb_max, devices)
         return
 
     go, ge = int(params.gap_open_int), int(params.gap_extend_int)
     step0 = np.float32(params.step_size_factor)
     n_iter = int(params.num_iterations)
     scan_steps = _scan_steps(models, dcap)
-    model, _ = _pack_models(models[:window], la_max, lb_max, device, dcap)
-    bp = _padded_batch(window)
+    model, _ = _pack_models(models[:window], la_max, lb_max, devices[0],
+                            dcap, len(devices))
+    bp = _padded_batch(window, len(devices))
     carry = device_solver._init_carry(bp, dcap, la_max, step0, n_iter,
-                                      device)
+                                      devices[0])
     # lane k holds (pair, model), or None (padding or harvested)
     lane_pair: List = [None] * bp
     for k in range(window):
@@ -464,7 +478,7 @@ def _run_refill(store, task: _Task, params: Parameters,
             new_models = models[next_i:next_i + take]
             with timing.phase("model packing (host)"):
                 rows = _upload_model(
-                    _model_rows(new_models, la_max, lb_max, dcap), device)
+                    _model_rows(new_models, la_max, lb_max, dcap), devices[0])
                 model, carry = device_solver.splice_lanes(
                     model, carry, lanes, rows, step0, n_iter)
             for j, k in enumerate(lanes):
@@ -587,14 +601,15 @@ def _upload_model(rows: device_solver.BatchModel, device: torch.device
 
 
 def _pack_models(models, la_max: int, lb_max: int, device: torch.device,
-                 dcap: int = 0):
-    """Pad the chunk's models to a power-of-two batch and upload them:
-    (BatchModel on ``device``, run-scan depth).  ``dcap`` defaults to the
-    chunk's quantised dual capacity."""
+                 dcap: int = 0, n_dev: int = 1):
+    """Pad the chunk's models to :func:`_padded_batch` lanes (to be split
+    over ``n_dev`` devices) and upload them: (BatchModel on ``device``,
+    run-scan depth).  ``dcap`` defaults to the chunk's quantised dual
+    capacity."""
     with timing.phase("model packing (host)"):
         dcap = dcap or _chunk_dcap(models)
         rows = _model_rows(models, la_max, lb_max, dcap,
-                           _padded_batch(len(models)))
+                           _padded_batch(len(models), n_dev))
         return _upload_model(rows, device), _scan_steps(models, dcap)
 
 
@@ -616,12 +631,18 @@ def _chunk_est_bytes(n_pairs: int, la_max: int, lb_max: int,
 
 def _run_solve(prep: _Prepared, params: Parameters
                ) -> device_solver.BatchResult:
-    with timing.phase("subgradient solve (device)"):
-        return device_solver.solve_batch(
-            prep.batch, int(params.gap_open_int), int(params.gap_extend_int),
+    """The chunk's solve: its lanes split over the devices where there
+    are several and more than one pair (``lara_tpu/solver/
+    device_driver.py:837-846``)."""
+    args = (prep.batch, int(params.gap_open_int), int(params.gap_extend_int),
             np.float32(params.step_size_factor), prep.la_max, prep.lb_max,
             int(params.num_iterations), int(params.max_nondecr_iterations),
-            int(params.matching), scan_steps=prep.scan_steps)
+            int(params.matching))
+    with timing.phase("subgradient solve (device)"):
+        if len(prep.devices) > 1 and len(prep.chunk) > 1:
+            return mesh.solve_batch_sharded(*args, prep.devices,
+                                            scan_steps=prep.scan_steps)
+        return device_solver.solve_batch(*args, scan_steps=prep.scan_steps)
 
 
 def _download_result(result: device_solver.BatchResult, params: Parameters):

@@ -35,7 +35,7 @@ GO, GE = -49152, -16384
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    return torch.device("cuda")
+    return torch.device("cuda", 0)
 
 
 def _int_equal(got, want, name):
@@ -267,7 +267,7 @@ def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
         return sorted((r.seq_indices, r.columns, r.score, r.best_upper,
                        r.best_lower, r.iterations)
                       for r in device_driver.solve_all(records, pairs,
-                                                       params, dev))
+                                                       params, [dev]))
 
     _build.reset_launches()
     on_card = solve(cuda)
@@ -523,7 +523,7 @@ def _solve_library(path, dev, **kw):
     params = Parameters(in_file=path, **kw)
     lib = OutputLibrary(records, params.out_format)
     for res in device_driver.solve_all(records, enumerate_pairs(records),
-                                       params, dev):
+                                       params, [dev]):
         lib.add_alignment(res.seq_indices, res.columns, res.score)
     return lib.to_string()
 
@@ -613,3 +613,56 @@ def test_splice_lanes_on_card_matches_cpu(cuda):
 
     for got, want in zip(splice(cuda), splice(torch.device("cpu"))):
         assert torch.equal(got, want)
+
+
+def test_require_refuses_another_current_card(cuda, monkeypatch):
+    """A kernel launched for a tensor on one card from a thread whose
+    current card is another raises, naming both."""
+    pssm = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
+    la = torch.ones(2, dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    with pytest.raises(ValueError, match="cuda:0.*cuda:1"):
+        gotoh_cuda.dp_forward(pssm, la, la, GO, GE)
+
+
+def test_sharded_solve_on_one_card_matches_one_device(cuda, tmp_path):
+    """The lanes of a batch split over ``[cuda:0, cuda:0]`` (two shards,
+    each on its own thread and stream) give every field of the one-device
+    solve, with K1, K2 and K3 launched once per iteration in each shard's
+    dispatches; the CLI path over two shards writes the CPU's bytes."""
+    from lara_tpu_torch import app
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.io.records import InputStorage
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.parallel import mesh
+    from lara_tpu_torch.solver import device_driver, device_solver
+
+    path = _write_family(tmp_path / "family.dbn", [22], seed=5)
+    records = InputStorage(in_file=path)
+    params = Parameters(in_file=path, num_iterations=60)
+    pairs = enumerate_pairs(records)
+    models, _ = device_driver._filter_and_build(records, pairs, params, 32,
+                                                32, cuda)
+    batch, scan_steps = device_driver._pack_models(models, 32, 32, cuda)
+    args = (batch, int(params.gap_open_int), int(params.gap_extend_int),
+            np.float32(params.step_size_factor), 32, 32, 60,
+            int(params.max_nondecr_iterations), 5)
+    one = device_solver.solve_batch(*args, scan_steps=scan_steps)
+    _build.reset_launches()
+    two = mesh.solve_batch_sharded(*args, [cuda, cuda], scan_steps=scan_steps)
+    torch.cuda.synchronize()
+    for name, got, want in zip(device_solver.BatchResult._fields, two, one):
+        assert got.device == cuda, name
+        _int_equal(got, want, name)
+    half = batch.la.shape[0] // 2
+    chunk = device_solver.dispatch_size()
+    iters = one.iterations.cpu().numpy()
+    want = sum(min(60, -(-int(iters[k:k + half].max()) // chunk) * chunk)
+               for k in (0, half))
+    assert _build.launches["gotoh_dp"] == want
+    assert _build.launches["matching_rounds"] == want
+    cpu_lib = _solve_library(path, torch.device("cpu"), num_iterations=60)
+    out = tmp_path / "two.lib"
+    app.run(Parameters(in_file=path, num_iterations=60, out_file=str(out)),
+            devices=[cuda, cuda])
+    assert out.read_text() == cpu_lib

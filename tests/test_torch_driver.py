@@ -70,7 +70,7 @@ def solve_port(path, events=None, **kw):
     store = InputStorage(in_file=str(path))
     lib = OutputLibrary(store, params.out_format)
     for res in device_driver.solve_all(store, enumerate_pairs(store), params,
-                                       CPU):
+                                       [CPU]):
         if events is not None:
             events.append(("yield", res.seq_indices))
         lib.add_alignment(res.seq_indices, res.columns, res.score)
@@ -406,7 +406,7 @@ def test_chunk_env_sets_dispatch(tmp_path, monkeypatch):
     store = InputStorage(in_file=path)
     with pytest.raises(ValueError, match="LARA_CHUNK"):
         device_driver.solve_all(store, enumerate_pairs(store),
-                                Parameters(in_file=path), CPU)
+                                Parameters(in_file=path), [CPU])
 
 
 def test_profile_env_writes_trace(tmp_path):

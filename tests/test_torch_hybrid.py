@@ -141,7 +141,7 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     params = port_params(Parameters(in_file="<test>", matching=0))
     with pytest.raises(NativeBuildError):
         device_driver.solve_all(records, app.enumerate_pairs(records), params,
-                                CPU)
+                                [CPU])
     path = tmp_path / "two.dbn"
     path.write_text(">h1\nGGGGAAAACCCC\n((((....))))\n"
                     ">h2\nGGGCAAAAGCCC\n(((.(...))))\n")

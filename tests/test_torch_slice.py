@@ -36,7 +36,7 @@ def run_port(path, **kw):
     lib = OutputLibrary(store, params.out_format)
     pairs = app.enumerate_pairs(store)
     for res in device_driver.solve_all(store, pairs, params,
-                                       torch.device("cpu")):
+                                       [torch.device("cpu")]):
         lib.add_alignment(res.seq_indices, res.columns, res.score)
     return lib.to_string()
 

@@ -187,8 +187,9 @@ def test_the_scan_finds_foreign_imports(tmp_path):
 def test_cli_paths_load_neither_jax_nor_lara_tpu(tmp_path):
     """Every port module imports, and ``python -m lara_tpu_torch`` runs on
     the CPU under -m 5, -m 0, --backend reference, --msa and
-    --predict builtin (a fasta without structures), in one process that
-    then holds neither ``jax`` nor any ``lara_tpu`` module."""
+    --predict builtin (a fasta without structures), and
+    ``python -m lara_tpu_torch.evaluate`` scores the MSA, in one process
+    that then holds neither ``jax`` nor any ``lara_tpu`` module."""
     dbn = tmp_path / "two.dbn"
     dbn.write_text(">h1\nGGGGAAAACCCC\n((((....))))\n"
                    ">h2\nGGGCAAAAGCCC\n(((.(...))))\n")
@@ -209,6 +210,12 @@ def test_cli_paths_load_neither_jax_nor_lara_tpu(tmp_path):
         "        runpy.run_module('lara_tpu_torch', run_name='__main__')\n"
         "    except SystemExit as exc:\n"
         "        assert exc.code in (0, None), (args, exc.code)\n"
+        f"msa = {str(tmp_path / 'msa.fa')!r}\n"
+        "sys.argv = ['evaluate', 'sps', msa, msa]\n"
+        "try:\n"
+        "    runpy.run_module('lara_tpu_torch.evaluate', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code in (0, None), exc.code\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'lara_tpu', "
         "'bench') or m.startswith(('jax.', 'lara_tpu.')))\n"
         "assert not bad, bad\n"
@@ -221,6 +228,7 @@ def test_cli_paths_load_neither_jax_nor_lara_tpu(tmp_path):
         text = (tmp_path / f"out{k}.lib").read_text()
         assert text.startswith("! T-COFFEE_LIB_FORMAT_01"), k
     assert (tmp_path / "msa.fa").read_text().count(">") == 2
+    assert proc.stdout.splitlines()[-1] == "1.0000"
 
 
 ARGVS = [
