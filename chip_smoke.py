@@ -19,7 +19,11 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    pair's time less K1's); K3 (greedy matching) at the main path's B=128
    and B=32 with W=512 columns and B=32 W=1536 S=1536, and at B=128 with
    W=256 and W=1024, lookahead 1, 2, 5, 8, each with the rounds of its
-   longest lane (counted in the plain loop) and the time per round;
+   longest lane (counted in the plain loop) and the time per round; K4
+   (the edge filter: its sweep, K1's kernel in a prefix mode over 2B lanes,
+   and its pack) at the main path's B=128 96x96, B=32 320x320, B=32
+   1536x1536 and B=40 333x700, the sweep's prefixes, the pack and the
+   filter's words each against its plain version;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
    families (``lara_tpu_torch.workloads``, copies of ``bench.py``'s): tRNA
    (120 pairs of ~72 nt), ~300 nt (28 pairs), 16S (28 pairs of 1530 nt,
@@ -35,7 +39,9 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    thread pool, and three of them again alone for the one-thread rate),
    the library bytes must equal the library built from the native results,
    and the launch counts, set to 0 before each run, must show exactly the
-   kernels the run is meant to launch.  16S runs again under
+   kernels the run is meant to launch, K4's two once per chunk the run
+   filtered (a spy on ``device_driver._filter_and_build`` counts them).
+   16S runs again under
    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
    under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
    ``LARA_PIPELINE=1`` in turns; each must write the same bytes.  The
@@ -89,7 +95,15 @@ KERNELS = {
     # one kernel for both resident TPU kernels (K1-res :468, K2-res :550)
     "gotoh_resident": ("lara_tpu_torch/csrc/gotoh_resident.cu",
                        "lara_tpu/ops/gotoh_pallas.py:468"),
+    # K4, the edge filter: not Pallas on the TPU but two XLA scans and a
+    # pack (edge_filter_skewed_words)
+    "edge_sweep": ("lara_tpu_torch/csrc/gotoh_dp.cu",
+                   "lara_tpu/ops/gotoh.py:337"),
+    "edge_pack": ("lara_tpu_torch/csrc/edge_filter.cu",
+                  "lara_tpu/ops/gotoh.py:337"),
 }
+#: K4's kernels, launched once per chunk on every path
+K4 = ("edge_sweep", "edge_pack")
 ALSO_REPLACES = {"gotoh_resident": "lara_tpu/ops/gotoh_pallas.py:550"}
 
 
@@ -291,6 +305,102 @@ def _variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t, dchunk, dirs_g,
     }
 
 
+def _edge_phase(b, la_max, lb_max, seed, dev, stats):
+    """K4 against its plain versions on one random batch of Rna5 residues
+    (ragged lanes, one full size, padded with 4 as the driver pads), the
+    default parameters' gaps and subopt: the sweep's prefixes on the cells
+    inside both halves' rectangles and its finals, the pack on the sweep's
+    own output, and the wrapper's words against the plain filter (two
+    scans).  Each is timed beside its bound; returns K4's ms (sweep and
+    pack, as the driver calls them)."""
+    import torch
+
+    from lara_tpu_torch.ops import gotoh, gotoh_cuda
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.types import f2i
+
+    params = Parameters(in_file="<smoke>")
+    go, ge = int(params.gap_open_int), int(params.gap_extend_int)
+    subopt = int(f2i(params.suboptimal_diff))
+    rng = np.random.default_rng(seed)
+    la = rng.integers(1, la_max + 1, b).astype(np.int32)
+    lb = rng.integers(1, lb_max + 1, b).astype(np.int32)
+    la[:3], lb[:3] = (1, la_max, la_max), (lb_max, 1, lb_max)
+    seq_a = np.full((b, la_max), 4, np.int32)
+    seq_b = np.full((b, lb_max), 4, np.int32)
+    for k in range(b):
+        seq_a[k, :la[k]] = rng.integers(0, 4, la[k])
+        seq_b[k, :lb[k]] = rng.integers(0, 4, lb[k])
+    inputs = tuple(torch.from_numpy(x).to(dev) for x in (
+        seq_a, seq_b, la, lb, np.asarray(params.score_matrix, np.int32)))
+
+    prefix_k, finals_k = gotoh_cuda.edge_sweep(*inputs, go, ge)
+    words_k = gotoh_cuda.edge_pack(prefix_k, finals_k, *inputs, subopt)
+    filter_k = gotoh_cuda.edge_filter_skewed_words(*inputs, go, ge, subopt,
+                                                   la_max, lb_max)
+    prefix_p, finals_p = gotoh.edge_sweep(*inputs, go, ge)
+    words_p = gotoh.edge_pack(prefix_k, finals_k, *inputs, subopt)
+    filter_p = gotoh.edge_filter_skewed_words(*inputs, go, ge, subopt,
+                                              la_max, lb_max)
+    torch.cuda.synchronize()
+    la2, lb2 = (torch.cat([x, x]) for x in inputs[2:4])
+    d_idx = torch.arange(la_max + lb_max + 1, device=dev)[None, :, None]
+    i_idx = torch.arange(la_max + 1, device=dev)[None, None, :]
+    valid = (i_idx <= la2[:, None, None]) & (d_idx >= i_idx) \
+        & (d_idx - i_idx <= lb2[:, None, None])
+    errs = {"edge_sweep": max(
+                _max_abs_err(finals_k, finals_p),
+                _max_abs_err(torch.where(valid, prefix_k, 0),
+                             torch.where(valid, prefix_p, 0))),
+            "edge_pack": _max_abs_err(words_k, words_p)}
+    filter_err = _max_abs_err(filter_k, filter_p)
+    if any(errs.values()) or filter_err:
+        raise AssertionError(f"K4 disagrees with the plain version at B={b} "
+                             f"{la_max}x{lb_max}: {errs}, words "
+                             f"{filter_err}")
+
+    times = {
+        "edge_sweep": (
+            _time_ms(lambda: gotoh_cuda.edge_sweep(*inputs, go, ge), 20),
+            _time_ms(lambda: gotoh.edge_sweep(*inputs, go, ge), 1)),
+        "edge_pack": (
+            _time_ms(lambda: gotoh_cuda.edge_pack(prefix_k, finals_k,
+                                                  *inputs, subopt), 20),
+            _time_ms(lambda: gotoh.edge_pack(prefix_k, finals_k, *inputs,
+                                             subopt), 1))}
+    k4_ms = _time_ms(lambda: gotoh_cuda.edge_filter_skewed_words(
+        *inputs, go, ge, subopt, la_max, lb_max), 20)
+    plain_ms = _time_ms(lambda: gotoh.edge_filter_skewed_words(
+        *inputs, go, ge, subopt, la_max, lb_max), 1)
+    # bounds from this batch: the sweep writes the prefix of every valid
+    # cell of both halves (2 x 21 operations per cell); the pack reads two
+    # prefixes per edge and writes the words; the whole filter reads the
+    # sequences and writes the words
+    cells = float(((la.astype(np.int64) + 1) * (lb + 1)).sum())
+    edges = float((la.astype(np.int64) * lb).sum())
+    in_bytes = 4.0 * (seq_a.size + seq_b.size + 2 * b + 25)
+    out_bytes = 4.0 * words_k.numel()
+    bounds = {
+        "edge_sweep": _bound(in_bytes + 8.0 * cells + 24 * b,
+                             2 * DP_OPS_PER_CELL * cells),
+        "edge_pack": _bound(8.0 * edges + in_bytes + 24 * b + out_bytes,
+                            4.0 * edges)}
+    k4_bound, k4_by = _bound(in_bytes + out_bytes, 2 * DP_OPS_PER_CELL * cells)
+    shape = f"B={b} {la_max}x{lb_max}"
+    for name, err in errs.items():
+        ms, plain = times[name]
+        bound_ms, bound_by = bounds[name]
+        stats[name].append((shape, err, ms, plain, bound_ms, bound_by))
+        print(f"  {name:16s} {shape:24s} max_abs_err {err}  kernel "
+              f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bound_ms:.4f} "
+              f"ms ({bound_by})")
+    clusters = gotoh_cuda.cluster_size(2 * b, la_max, lb_max, dev)
+    print(f"  {'K4':16s} {shape:24s} words max_abs_err {filter_err}  sweep + "
+          f"pack {k4_ms:.4f} ms ({clusters} CTA(s) per lane)  plain filter "
+          f"{plain_ms:.4f} ms  bound {k4_bound:.4f} ms ({k4_by})")
+    return k4_ms
+
+
 def _matching_case(b, width, slots, seed):
     """Queue-ordered candidate columns with exact weight ties among dead
     columns (the fuzz of tests/test_matching_pallas.py at bench widths)."""
@@ -426,12 +536,33 @@ def _native_check(name, store, pairs, params, run, library, threads):
     return sum(solve(pair)[1] for pair in alone), len(alone)
 
 
+@contextlib.contextmanager
+def _filtered_chunks():
+    """A list that gets the pairs of every chunk that
+    ``device_driver._filter_and_build`` (every path's edge filter) takes."""
+    from lara_tpu_torch.solver import device_driver
+
+    chunks = []
+    real = device_driver._filter_and_build
+
+    def spy(store, chunk, *args):
+        chunks.append(len(chunk))
+        return real(store, chunk, *args)
+
+    device_driver._filter_and_build = spy
+    try:
+        yield chunks
+    finally:
+        device_driver._filter_and_build = real
+
+
 def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
                native_threads=1, same_as=None, devices=None, **params_kw):
     """One run of the port's CLI path on a family (``records``, or the
     path of an input file), on ``dev`` or split over ``devices``.  The
     launch counts are set to 0 just before the run and read just after it;
-    the kernels that launched must be exactly ``expect``.  Every pair is
+    the kernels that launched must be exactly ``expect``, and K4's two
+    exactly once per chunk the run filtered.  Every pair is
     checked against the native C++ baseline (on ``native_threads``
     threads), or, with ``same_as`` (an earlier run's (library, results)),
     the library bytes against that library and every pair against that
@@ -459,13 +590,14 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
                         matching=matching, **params_kw)
     os.environ.update(env)
     try:
-        _build.reset_launches()
-        hybrid_driver.turns = 0
-        start = time.perf_counter()
-        run = app.run(params, dev, devices)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-        launches = dict(_build.launches)
+        with _filtered_chunks() as chunks:
+            _build.reset_launches()
+            hybrid_driver.turns = 0
+            start = time.perf_counter()
+            run = app.run(params, dev, devices)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = dict(_build.launches)
     finally:
         for key in env:
             del os.environ[key]
@@ -476,6 +608,10 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     if launched != set(expect):
         raise AssertionError(f"{name}: launched {sorted(launched)}, expected "
                              f"{sorted(expect)} ({launches})")
+    if not launches["edge_sweep"] == launches["edge_pack"] == len(chunks):
+        raise AssertionError(f"{name}: K4 launched {launches['edge_sweep']} "
+                             f"sweeps and {launches['edge_pack']} packs for "
+                             f"{len(chunks)} filtered chunks {chunks}")
 
     store = app.load_input(params)
     pairs = app.enumerate_pairs(store)
@@ -507,7 +643,8 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
             f"{native_threads} threads"
         print(f"    native C++ baseline, one host thread, {timed}: "
               f"{native_s:.3f} s, {native_n / native_s:.3f} alignments/s")
-    print(f"    launches: {launches}")
+    print(f"    launches: {launches}; {len(chunks)} chunk(s) filtered "
+          f"({', '.join(map(str, chunks))} pairs)")
     return launches, library, wall, run
 
 
@@ -554,19 +691,28 @@ def _pipelined_chunks():
         device_driver._solve_on = solve_on
 
 
-def _long_path(family, dev, tmp, expect):
+def _long_path(family, dev, tmp, expect, k4_ms):
     """The 16S family, one 1536x1536 bucket of 28 pairs.  By default it is
     one chunk of 32 lanes, neither split nor pipelined; every pair is
     checked against the native baseline on a thread pool.  Then
     ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (two halves of 14 pairs, 16
     lanes each, through the pipeline on the solver thread's stream) and
-    ``LARA_NO_PIPELINE=1`` must write the same library bytes.  Returns the
-    default run's (launch counts, library, wall, run)."""
+    ``LARA_NO_PIPELINE=1`` must write the same library bytes.  The default
+    run's "edge filter (device)" phase is printed beside ``k4_ms``, K4's
+    time at B=32 1536x1536 in phase 2.  Returns the default run's (launch
+    counts, library, wall, run)."""
+    from lara_tpu_torch.utils import timing
+
     walls = {}
     with _pipelined_chunks() as solved:
         default = _main_path(*family, dev, tmp, expect,
                              native_threads=os.cpu_count() or 1)
         _exact_launches("16S default", default[0], default[3].results, 1)
+        filter_s = timing.snapshot()["edge filter (device)"]
+        print(f"    16S edge filter (device) phase {filter_s:.3f} s for one "
+              f"chunk; K4's kernels (sweep + pack) at B=32 1536x1536 "
+              f"{k4_ms:.4f} ms in phase 2; the rest is the upload, the "
+              "download of the words and their unpacking on the host")
         walls["default"] = default[2]
         same = (default[1], default[3].results)
         if solved:
@@ -916,6 +1062,12 @@ def main() -> int:
         for lookahead in (5, 1, 2, 8):
             _matching_phase(128, width, 96, lookahead, 10 + lookahead, dev,
                             stats)
+    # K4 at the chunks of the tRNA, ~300 nt and 16S families and the ragged
+    # batch (2B lanes: one CTA per lane at B=128 and 40, two at B=32)
+    _edge_phase(128, 96, 96, 5, dev, stats)
+    _edge_phase(32, 320, 320, 6, dev, stats)
+    k4_16s = _edge_phase(32, 1536, 1536, 7, dev, stats)
+    _edge_phase(40, 333, 700, 8, dev, stats)
 
     families = [
         ("trna-72nt", make_family(n=16)),
@@ -924,64 +1076,55 @@ def main() -> int:
         ("16S-1530nt-batch28", make_long_family(n=8, length=1530, seed=47)),
     ]
     trna, rrna, long16 = families
-    fused = ("gotoh_dp", "gotoh_tb", "matching_rounds")
+    fused = ("gotoh_dp", "gotoh_tb", "matching_rounds") + K4
     launches = dict.fromkeys(KERNELS, 0)
+
+    def count(run):
+        for name, n in run.items():
+            launches[name] += n
+
     with tempfile.TemporaryDirectory() as tmp:
         print("main path: lara_tpu_torch.app.run, default parameters:")
         one = {}
         for label, records in (trna, rrna):
             one[label] = _main_path(label, records, dev, tmp, fused)
             _exact_launches(label, one[label][0], one[label][3].results, 1)
-            for name in fused:
-                launches[name] += one[label][0][name]
+            count(one[label][0])
         print("lane refill:")
-        run = _refill_path(trna, dev, tmp, fused)
-        for name in fused:
-            launches[name] += run[name]
+        count(_refill_path(trna, dev, tmp, fused))
         print("16S, one 1536x1536 bucket:")
-        one[long16[0]] = _long_path(long16, dev, tmp, fused)
-        for name in fused:
-            launches[name] += one[long16[0]][0][name]
+        one[long16[0]] = _long_path(long16, dev, tmp, fused, k4_16s)
+        count(one[long16[0]][0])
         print("mixed lengths, three buckets, serial and pipelined:")
-        run = _mixed_path(("mixed-trna+300nt", trna[1] + rrna[1]), dev, tmp,
-                          fused)
-        for name in fused:
-            launches[name] += run[name]
+        count(_mixed_path(("mixed-trna+300nt", trna[1] + rrna[1]), dev, tmp,
+                          fused))
         print("each chunk's lanes split over [cuda:0, cuda:0] "
               "(lara_tpu_torch.parallel.mesh):")
         for label, records in (trna, long16):
-            run = _sharded_path(label, records, dev, tmp, fused, one[label])
-            for name in fused:
-                launches[name] += run[name]
+            count(_sharded_path(label, records, dev, tmp, fused, one[label]))
         if torch.cuda.device_count() > 1:
             cards = [torch.device("cuda", k)
                      for k in range(torch.cuda.device_count())]
-            run = _main_path(*trna, dev, tmp, fused, devices=cards,
+            count(_main_path(*trna, dev, tmp, fused, devices=cards,
                              same_as=(one[trna[0]][1],
-                                      one[trna[0]][3].results))[0]
-            for name in fused:
-                launches[name] += run[name]
+                                      one[trna[0]][3].results))[0])
         else:
             print("  one card: no number over several cards was measured")
         print("two hosts' processes over gloo, on one card:")
         _two_process_path(os.path.join(tmp, f"{trna[0]}.ebpseq"),
                           one[trna[0]], tmp)
         print("the repository's families, --predict builtin --msa:")
-        run = _quality_path(dev, tmp, fused)
-        for name in fused:
-            launches[name] += run[name]
+        count(_quality_path(dev, tmp, fused))
         print("hybrid backend (host matching):")
-        _main_path(*trna, dev, tmp, ("gotoh_dp", "gotoh_tb"), matching=0)
-        run = _main_path(*rrna, dev, tmp, ("gotoh_resident",), matching=12,
-                         env={"LARA_DP_RESIDENT": "1"})[0]
-        launches["gotoh_resident"] = run["gotoh_resident"]
+        count(_main_path(*trna, dev, tmp, ("gotoh_dp", "gotoh_tb") + K4,
+                         matching=0)[0])
+        count(_main_path(*rrna, dev, tmp, ("gotoh_resident",) + K4,
+                         matching=12, env={"LARA_DP_RESIDENT": "1"})[0])
         print("fused path, grid-stepped DP kernels:")
-        run = _main_path(
+        count(_main_path(
             *trna, dev, tmp,
-            ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds"),
-            env={"LARA_DP_GRID": "1"})[0]
-        launches["gotoh_grid_dp"] = run["gotoh_grid_dp"]
-        launches["gotoh_grid_tb"] = run["gotoh_grid_tb"]
+            ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds") + K4,
+            env={"LARA_DP_GRID": "1"})[0])
     print(f"  kernel launches, each from the runs meant to launch it: "
           f"{launches}")
     print("where one chunk's solve spends its time:")
@@ -1005,8 +1148,8 @@ def main() -> int:
             "max_abs_err": max(s[1] for s in stats[name]),
             "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
             "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
-            # no PyTorch call computes an affine-gap DP, its traceback or
-            # the greedy lookahead matching
+            # no PyTorch call computes an affine-gap DP, its traceback, the
+            # greedy lookahead matching or the edge filter
             "library_ms": None, "shape": shape}
         for more in extra:  # K3: the rounds of the longest lane
             entry.update(more)

@@ -62,6 +62,25 @@
 // seq-score sum comes off the chain: after the walk the warp sums
 // seq[b, i, partner[i]] over the matched rows (uint32 adds commute).
 //
+// K4's sweep is K1 in a prefix mode (dp_wave_kernel<true>): the same
+// strips, rings and step, but each cell stores the int32 max(M, H, V) where
+// K1 stores its int8 code (128 bytes per warp step, still coalesced), and a
+// lane's scores come from the sequences and the 5x5 substitution matrix
+// instead of a score grid.  It replaces the edge filter's two XLA scans
+// (lara_tpu/ops/gotoh.py:336-383, gotoh_scan(emit="prefix") and
+// suffix_scan): one launch runs 2B lanes, B over the forward grid and B over
+// each lane's reversed sequences, whose forward prefix at (la-1-a, lb-1-b)
+// is the suffix score of cell (a, b) (the native baseline's two forward
+// sweeps, lara_tpu_torch/native/src/baseline.cpp:133-160).  The scores of a
+// 32-column chunk are looked up once per 32 steps, by two shuffles a column
+// (B's residue from the lane that read it, then the score from the lane
+// that holds that matrix entry), off the step's chain; the codes and the
+// border are not computed.  Its bound is bytes (the int32 prefix of every
+// valid cell, written once), but like K1 it meets the chain and the integer
+// issue rate first; at 16S its 2B lanes get two CTAs each, where K1's B get
+// four.  The plain version is lara_tpu_torch/ops/gotoh.py::edge_sweep; the
+// pack that follows is csrc/edge_filter.cu.
+//
 // int32 sums wrap exactly as XLA's do: every add goes through uint32_t
 // (signed overflow is undefined in C++), and the NEG_INF sentinel adds to
 // itself outside a lane's rectangle as it does there.
@@ -81,6 +100,7 @@ constexpr int kNegInf = -1431655764;  // PSSM_INIT == NEG_INF
 constexpr int kMat = 0, kHor = 1, kVer = 2;
 constexpr int kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kAlpha = 5;  // the Rna5 alphabet of K4's sequences
 
 // K1 shared memory, per warp: a score ring of three 32-column chunks for
 // each of its 32 rows, then its input ring of kRing (M, H, V) cells, each
@@ -241,12 +261,22 @@ __device__ __forceinline__ int wave_cell(int i, int j, int sc, int dm, int dh,
 // Grid: batch * C CTAs in clusters of C (one cluster per pair), nw warps
 // each.  Shared memory: nw * kWarpInts ints, then cons[nw]: the cells
 // consumed from the ring that warp w feeds (written by its consumer).
+// K1 (kPrefix false) reads the score grid pssm [batch, la_max, lb_max] and
+// the border codes and writes int8 codes to out; K4's sweep (kPrefix true)
+// reads seq_a [batch/2, la_max], seq_b [batch/2, lb_max] and submat [5, 5]
+// (lane b < batch/2 forward, lane batch/2 + b the reversed sequences of
+// pair b, with the la and lb of pair b) and writes int32 prefixes to out.
+template <bool kPrefix>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    dp_wave_kernel(const int* __restrict__ pssm, const int* __restrict__ la_arr,
+    dp_wave_kernel(const int* __restrict__ pssm, const int* __restrict__ seq_a,
+                   const int* __restrict__ seq_b,
+                   const int* __restrict__ submat,
+                   const int* __restrict__ la_arr,
                    const int* __restrict__ lb_arr,
                    const int8_t* __restrict__ border, int la_max, int lb_max,
                    int go, int ge, int nw, int batch, int vec16,
-                   int8_t* __restrict__ dirs, int* __restrict__ finals) {
+                   void* __restrict__ out, int* __restrict__ finals) {
+  using Cell = std::conditional_t<kPrefix, int, int8_t>;
   extern __shared__ __align__(16) int smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -263,13 +293,25 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   cluster.sync();
 
   const int W = la_max + 1;
-  const int la = la_arr[b];
-  const int lb = lb_arr[b];
+  // K4: the pair whose sequences lane b sweeps, and whether reversed
+  const int half = batch / 2;
+  const int pair = kPrefix && b >= half ? b - half : b;
+  const bool rev = kPrefix && b >= half;
+  const int la = la_arr[pair];
+  const int lb = lb_arr[pair];
   const int ncol = lb + 1;
   const int nstrips = (la + 32) / 32;  // rows 0..la
   const int P = C * nw;
-  const int* P_b = pssm + static_cast<size_t>(b) * la_max * lb_max;
-  int8_t* out_b = dirs + static_cast<size_t>(b) * (la_max + lb_max + 1) * W;
+  const int* P_b =
+      kPrefix ? pssm : pssm + static_cast<size_t>(b) * la_max * lb_max;
+  const int* sa =
+      kPrefix ? seq_a + static_cast<size_t>(pair) * la_max : seq_a;
+  const int* sb =
+      kPrefix ? seq_b + static_cast<size_t>(pair) * lb_max : seq_b;
+  // K4: lane x < 25 holds submat[x], read by shuffles
+  const int sub_entry = kPrefix && lane < kAlpha * kAlpha ? submat[lane] : 0;
+  Cell* out_b = static_cast<Cell*>(out) +
+                static_cast<size_t>(b) * (la_max + lb_max + 1) * W;
 
   for (int k = rank + C * warp; k < nstrips; k += P) {
     const int base = 32 * k;
@@ -295,28 +337,48 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     // score row i-1, columns [32c, 32c+32) into chunk slot c % 3
     const bool row_ok = i >= 1 && i <= la;
     const int* src_row = P_b + static_cast<size_t>(i - 1) * lb_max;
+    // K4: the first matrix entry of row i-1's residue (row x of the
+    // reversed grid is A[la-1-x])
+    const int sub_row =
+        kPrefix && row_ok ? kAlpha * sa[rev ? la - i : i - 1] : 0;
     auto load_chunk = [&](int c) {
       const int c0 = 32 * c;
-      if (row_ok && c0 < lb) {
-        int* dst = tile + (c % 3) * 32;
-        const int n = min(32, lb - c0);
-        if (vec16) {
-          for (int x = 0; x < n; x += 4) cp_async16(dst + x, src_row + c0 + x);
-        } else {
-          for (int x = 0; x < n; ++x) cp_async4(dst + x, src_row + c0 + x);
+      if constexpr (kPrefix) {
+        // the whole warp takes part in the shuffles: c0 < lb is uniform
+        if (c0 < lb) {
+          int* dst = tile + (c % 3) * 32;
+          const int col = c0 + lane;
+          const int cb = col < lb ? sb[rev ? lb - 1 - col : col] : 0;
+#pragma unroll 8
+          for (int x = 0; x < 32; ++x) {
+            const int v = __shfl_sync(
+                kFull, sub_entry, sub_row + __shfl_sync(kFull, cb, x));
+            if (row_ok) dst[x] = v;
+          }
         }
+      } else {
+        if (row_ok && c0 < lb) {
+          int* dst = tile + (c % 3) * 32;
+          const int n = min(32, lb - c0);
+          if (vec16) {
+            for (int x = 0; x < n; x += 4)
+              cp_async16(dst + x, src_row + c0 + x);
+          } else {
+            for (int x = 0; x < n; ++x) cp_async4(dst + x, src_row + c0 + x);
+          }
+        }
+        cp_async_commit();
       }
-      cp_async_commit();
     };
     load_chunk(0);
 
     int cm = kNegInf, ch = kNegInf, cv = kNegInf;  // (i, j-1)
     int dm = kNegInf, dh = kNegInf, dv = kNegInf;  // (i-1, j-1)
     int ci = kTileCols - 1 - lane;                 // (j-1) mod 96
-    const int bcode = i <= la ? border[i] : 0;
+    const int bcode = !kPrefix && i <= la ? border[i] : 0;
     const bool row_valid = i <= la;
-    // code of cell (i, j) at out_b[(i + j) * W + i]; j = s - lane
-    int8_t* outp = out_b + static_cast<size_t>(base) * W + i;
+    // code (K4: prefix) of cell (i, j) at out_b[(i + j) * W + i]; j = s - lane
+    Cell* outp = out_b + static_cast<size_t>(base) * W + i;
     int in_slot = e_in % kRing, out_slot = e_out % kRing;
     int cons_seen = -kRing;  // the consumer's count, last read
     // the step at which this lane meets cell (la, lb), and the last column
@@ -327,7 +389,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int s0 = 0; s0 < nsteps; s0 += kSub) {
       if ((s0 & 31) == 0) {
         load_chunk((s0 >> 5) + 1);
-        cp_async_wait<1>();
+        if constexpr (!kPrefix) cp_async_wait<1>();
       }
       // the up cells of lane 0's columns s0 .. s0+kSub-1, from the ring: every
       // lane reads them (one broadcast load each), so the warp polls and
@@ -378,7 +440,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           const bool store = kEdge ? row_valid && static_cast<unsigned>(j) <=
                                                       static_cast<unsigned>(lb)
                                    : j <= j_hi;
-          if (store) *outp = static_cast<int8_t>(code);
+          if (store) {
+            if constexpr (kPrefix) {
+              *outp = max(max(cm, ch), cv);
+            } else {
+              *outp = static_cast<int8_t>(code);
+            }
+          }
           if (s == fin_s) {
             finals[b] = cm;
             finals[batch + b] = ch;
@@ -420,7 +488,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                                           : in_slot + kSub;
       }
     }
-    cp_async_wait<0>();
+    if constexpr (!kPrefix) cp_async_wait<0>();
     __syncwarp();
   }
   // no CTA may leave while a neighbour still writes into its shared memory
@@ -558,18 +626,14 @@ bool ring_safe(int la_max, int lb_max, int cluster) {
   return strips <= p || p * (kRing + 28 - kSub) >= lb_max + 32;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* lara_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
-                  const int8_t* border, int batch, int la_max, int lb_max,
-                  int go, int ge, int cluster, int8_t* dirs, int* finals,
-                  void* stream) {
+// K1 (kPrefix false) or K4's sweep over ``batch`` lanes in clusters of
+// ``cluster`` CTAs per lane.
+template <bool kPrefix>
+int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
+                const int* submat, const int* la, const int* lb,
+                const int8_t* border, int batch, int la_max, int lb_max,
+                int go, int ge, int cluster, int vec16, void* out,
+                int* finals, void* stream) {
   if (cluster < 1 || cluster > 8 || !ring_safe(la_max, lb_max, cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   const int strips = (la_max + 32) / 32;
@@ -578,11 +642,9 @@ int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
       (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      dp_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dp_wave_kernel<kPrefix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec16 = (lb_max % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(pssm) % 16 == 0);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * cluster);
   cfg.blockDim = dim3(32 * nw);
@@ -595,10 +657,41 @@ int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel, pssm, la, lb, border, la_max,
-                           lb_max, go, ge, nw, batch, vec16, dirs, finals);
+  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel<kPrefix>, pssm, seq_a, seq_b,
+                           submat, la, lb, border, la_max, lb_max, go, ge, nw,
+                           batch, vec16, out, finals);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lara_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
+                  const int8_t* border, int batch, int la_max, int lb_max,
+                  int go, int ge, int cluster, int8_t* dirs, int* finals,
+                  void* stream) {
+  const int vec16 = (lb_max % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(pssm) % 16 == 0);
+  return launch_wave<false>(pssm, nullptr, nullptr, nullptr, la, lb, border,
+                            batch, la_max, lb_max, go, ge, cluster, vec16,
+                            dirs, finals, stream);
+}
+
+// K4's sweep over 2 * pairs lanes: prefix [2 * pairs, D, W] int32 (written
+// on the valid cells only), finals [3, 2 * pairs].
+int lara_edge_sweep(const int* seq_a, const int* seq_b, const int* submat,
+                    const int* la, const int* lb, int pairs, int la_max,
+                    int lb_max, int go, int ge, int cluster, int* prefix,
+                    int* finals, void* stream) {
+  return launch_wave<true>(nullptr, seq_a, seq_b, submat, la, lb, nullptr,
+                           2 * pairs, la_max, lb_max, go, ge, cluster, 0,
+                           prefix, finals, stream);
 }
 
 int lara_gotoh_tb(const int8_t* dirs, const int* finals, const int* la,

@@ -17,8 +17,10 @@ lb_max + 1, W = la_max + 1) and ``finals`` is ``[3, B]`` int32 (M, H, V at
 (la, lb)).  :func:`compact_lines` turns the dense partner map into the
 ordered line list, as plain torch on every device.
 
-The edge filter (:func:`edge_filter_skewed_words`) runs once per chunk and
-stays plain torch on every device.
+The edge filter (:func:`edge_filter_skewed_words`, once per chunk) is K4
+on the card: :func:`edge_sweep` is its sweep's plain version (the forward
+prefix over each pair and over its reversed sequences, in K1's layout) and
+:func:`edge_pack` its pack's; together they give the filter's words.
 """
 
 from __future__ import annotations
@@ -332,16 +334,87 @@ def edge_filter_skewed_words(seq_a, seq_b, la, lb, submat, go, ge, subopt,
     total = res_f.aux + sub_shifted + suf               # [D, B, W]
     thresh = (opt - int(subopt))[None, :, None]
     act = in_bounds & (total >= thresh).permute(1, 0, 2)
+    return _packed_words(act, opt)
 
+
+def _packed_words(act: torch.Tensor, opt: torch.Tensor) -> torch.Tensor:
+    """[B, D, W] active bits -> ``[B, K+1]`` int32: bit k of word w is flat
+    index 32w + k (zero padding past D * W), then ``opt``."""
+    b = act.shape[0]
     flat = act.reshape(b, -1).to(torch.int64)
     pad = (-flat.shape[1]) % 32
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     bits = flat.reshape(b, -1, 32)
-    shifts = torch.arange(32, device=dev, dtype=torch.int64)
+    shifts = torch.arange(32, device=act.device, dtype=torch.int64)
     words = (bits << shifts).sum(dim=2)
     words = torch.where(words >= 2**31, words - 2**32, words).to(I32)
     return torch.cat([words, opt[:, None].to(I32)], dim=1)
+
+
+def edge_sweep(seq_a, seq_b, la, lb, submat, go: int, ge: int):
+    """Plain version of K4's sweep: the forward wavefront's prefix
+    max(M, H, V) of every cell over 2B lanes, lane b over pair b's score
+    grid and lane B + b over the grid of its reversed sequences (row x is
+    ``seq_a[b, la-1-x]``, column y ``seq_b[b, lb-1-y]``), whose prefix at
+    (la-1-a, lb-1-b2) is the suffix score of edge (a, b2).  Returns
+    (prefix [2B, D, W] int32 in K1's layout, cell (i, j) at [lane, i+j, i],
+    finals [3, 2B] int32).  Only cells with i <= la and j <= lb are
+    defined."""
+    b, la_max = seq_a.shape
+    lb_max = seq_b.shape[1]
+    dev = seq_a.device
+    la = la.to(I32)
+    lb = lb.to(I32)
+
+    def reverse(seq, n, n_max):
+        idx = (n.long()[:, None] - 1
+               - torch.arange(n_max, device=dev)[None, :]).clamp(min=0)
+        return seq.gather(1, idx)
+
+    sub = _sub_grid(submat.to(I32),
+                    torch.cat([seq_a, reverse(seq_a, la, la_max)]),
+                    torch.cat([seq_b, reverse(seq_b, lb, lb_max)]))
+    res = gotoh_scan(skew_scores(sub, NEG_INF), torch.cat([la, la]),
+                     torch.cat([lb, lb]), go, ge, la_max, emit="prefix")
+    prefix = res.aux.permute(1, 0, 2).contiguous()
+    return prefix, torch.stack([res.final_m, res.final_h, res.final_v])
+
+
+def edge_pack(prefix, finals, seq_a, seq_b, la, lb, submat,
+              subopt: int) -> torch.Tensor:
+    """Plain version of K4's pack: from :func:`edge_sweep`'s output, the
+    ``[B, K+1]`` words of :func:`edge_filter_skewed_words`.  Edge (a, b2)
+    of pair b is active iff prefix[b] at (a, b2) + sub(a, b2) +
+    prefix[B + b] at (la-1-a, lb-1-b2) >= opt - subopt, opt the best of
+    lane b's finals; it reads no cell outside the lanes' rectangles."""
+    b, la_max = seq_a.shape
+    lb_max = seq_b.shape[1]
+    num_diag, width = la_max + lb_max + 1, la_max + 1
+    dev = seq_a.device
+    la_c = la.to(torch.int64)[:, None, None]
+    lb_c = lb.to(torch.int64)[:, None, None]
+    opt = torch.maximum(torch.maximum(finals[0, :b], finals[1, :b]),
+                        finals[2, :b])
+    d_idx = torch.arange(num_diag, device=dev)[None, :, None]
+    a_idx = torch.arange(width, device=dev)[None, None, :]
+    b2_idx = d_idx - a_idx
+    in_bounds = (a_idx < la_c) & (b2_idx >= 0) & (b2_idx < lb_c)  # [B, D, W]
+
+    def at(lanes, d, a):
+        """lanes [B, D, W] at per-edge (d, a), 0 off the edges"""
+        flat = torch.where(in_bounds, d * width + a, 0)
+        return lanes.reshape(b, -1).gather(1, flat.reshape(b, -1)) \
+            .reshape(b, num_diag, width)
+
+    fwd = at(prefix[:b], d_idx, a_idx)
+    bwd = at(prefix[b:], la_c + lb_c - 2 - d_idx, la_c - 1 - a_idx)
+    cell = torch.where(in_bounds, a_idx * lb_max + b2_idx, 0)
+    sub = _sub_grid(submat.to(I32), seq_a, seq_b).reshape(b, -1) \
+        .gather(1, cell.reshape(b, -1)).reshape(b, num_diag, width)
+    total = fwd + sub + bwd
+    act = in_bounds & (total >= (opt - int(subopt))[:, None, None])
+    return _packed_words(act, opt)
 
 
 def unskew_active_words(packed_np: np.ndarray, la_max: int, lb_max: int):

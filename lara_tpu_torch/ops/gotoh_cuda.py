@@ -14,12 +14,18 @@ matched cells, plus the ordered line list with ``emit_lines=True``.  A plan
 * ``LARA_DP_RESIDENT=1``: K-res (:func:`align_resident`),
   ``csrc/gotoh_resident.cu``.
 
+Once per chunk, before any iteration, the edge filter
+(:func:`edge_filter_skewed_words`) runs K4: its sweep (:func:`edge_sweep`,
+K1's kernel in a prefix mode, ``csrc/gotoh_dp.cu``) and its pack
+(:func:`edge_pack`, ``csrc/edge_filter.cu``).
+
 Every wrapper launches its kernel for CUDA tensors, or raises; for CPU
 tensors it runs the plain version from :mod:`lara_tpu_torch.ops.gotoh`.
 
 Preconditions the kernels trust (``device_driver`` and ``hybrid_driver``
 guarantee them):
-``1 <= la <= la_max`` and ``1 <= lb <= lb_max`` in every lane.
+``1 <= la <= la_max`` and ``1 <= lb <= lb_max`` in every lane, and K4's
+residues in 0..4 (``encode_rna5``, padded with 4).
 """
 
 from __future__ import annotations
@@ -275,6 +281,93 @@ def align_resident(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
     _build.check(rc, "gotoh_resident")
     _build.count("gotoh_resident")
     return _traceback_of(partner, scalars)
+
+
+def _require_edge_inputs(seq_a, seq_b, la, lb, submat):
+    """(pairs, la_max, lb_max, device) of K4's inputs, checked."""
+    b, la_max = seq_a.shape
+    lb_max = seq_b.shape[1]
+    dev = seq_a.device
+    _build.require(seq_a, "seq_a", I32, (b, la_max), dev)
+    _build.require(seq_b, "seq_b", I32, (b, lb_max), dev)
+    _require_lanes(la, lb, b, dev)
+    _build.require(submat, "submat", I32, (5, 5), dev)
+    return b, la_max, lb_max, dev
+
+
+def edge_sweep(seq_a: torch.Tensor, seq_b: torch.Tensor, la: torch.Tensor,
+               lb: torch.Tensor, submat: torch.Tensor, go: int, ge: int,
+               cluster: int = 0):
+    """K4's sweep: (prefix [2B, D, W] int32, finals [3, 2B] int32) of the
+    forward wavefront over each pair and over its reversed sequences
+    (:func:`lara_tpu_torch.ops.gotoh.edge_sweep`; only the cells inside the
+    lanes' rectangles are written).  K1's kernel in its prefix mode on the
+    card, in clusters of ``cluster`` CTAs per lane (0: :func:`cluster_size`
+    at 2B lanes)."""
+    if not seq_a.is_cuda:
+        return gotoh.edge_sweep(seq_a, seq_b, la, lb, submat, go, ge)
+    b, la_max, lb_max, dev = _require_edge_inputs(seq_a, seq_b, la, lb,
+                                                  submat)
+    prefix = torch.empty((2 * b, la_max + lb_max + 1, la_max + 1),
+                         dtype=I32, device=dev)
+    finals = torch.empty((3, 2 * b), dtype=I32, device=dev)
+    cluster = cluster or cluster_size(2 * b, la_max, lb_max, dev)
+    rc = _build.library().lara_edge_sweep(
+        seq_a.data_ptr(), seq_b.data_ptr(), submat.data_ptr(), la.data_ptr(),
+        lb.data_ptr(), b, la_max, lb_max, int(go), int(ge), cluster,
+        prefix.data_ptr(), finals.data_ptr(), _build.stream_of(seq_a))
+    _build.check(rc, "edge_sweep")
+    _build.count("edge_sweep")
+    return prefix, finals
+
+
+def edge_pack(prefix: torch.Tensor, finals: torch.Tensor,
+              seq_a: torch.Tensor, seq_b: torch.Tensor, la: torch.Tensor,
+              lb: torch.Tensor, submat: torch.Tensor,
+              subopt: int) -> torch.Tensor:
+    """K4's pack: the ``[B, K+1]`` int32 words of
+    :func:`edge_filter_skewed_words` from :func:`edge_sweep`'s output
+    (:func:`lara_tpu_torch.ops.gotoh.edge_pack`); ``csrc/edge_filter.cu``
+    on the card."""
+    if not prefix.is_cuda:
+        return gotoh.edge_pack(prefix, finals, seq_a, seq_b, la, lb, submat,
+                               subopt)
+    b, la_max, lb_max, dev = _require_edge_inputs(seq_a, seq_b, la, lb,
+                                                  submat)
+    num_diag, width = la_max + lb_max + 1, la_max + 1
+    _build.require(prefix, "prefix", I32, (2 * b, num_diag, width), dev)
+    _build.require(finals, "finals", I32, (3, 2 * b), dev)
+    out = torch.empty((b, -(-num_diag * width // 32) + 1), dtype=I32,
+                      device=dev)
+    rc = _build.library().lara_edge_pack(
+        prefix.data_ptr(), finals.data_ptr(), seq_a.data_ptr(),
+        seq_b.data_ptr(), submat.data_ptr(), la.data_ptr(), lb.data_ptr(), b,
+        la_max, lb_max, int(subopt), out.data_ptr(), _build.stream_of(prefix))
+    _build.check(rc, "edge_pack")
+    _build.count("edge_pack")
+    return out
+
+
+def edge_filter_skewed_words(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                             la: torch.Tensor, lb: torch.Tensor,
+                             submat: torch.Tensor, go: int, ge: int,
+                             subopt: int, la_max: int,
+                             lb_max: int) -> torch.Tensor:
+    """The edge filter of one chunk (the contract of
+    :func:`lara_tpu_torch.ops.gotoh.edge_filter_skewed_words`, which runs
+    for CPU tensors): ``[B, K+1]`` int32 packed skewed active bits plus
+    each pair's optimum.  K4 on the card: :func:`edge_sweep`, then
+    :func:`edge_pack`."""
+    if not seq_a.is_cuda:
+        return gotoh.edge_filter_skewed_words(seq_a, seq_b, la, lb, submat,
+                                              go, ge, subopt, la_max, lb_max)
+    if tuple(seq_a.shape[1:]) != (la_max,) \
+            or tuple(seq_b.shape[1:]) != (lb_max,):
+        raise ValueError(f"seq_a {tuple(seq_a.shape)} and seq_b "
+                         f"{tuple(seq_b.shape)} are not [B, {la_max}] and "
+                         f"[B, {lb_max}]")
+    prefix, finals = edge_sweep(seq_a, seq_b, la, lb, submat, go, ge)
+    return edge_pack(prefix, finals, seq_a, seq_b, la, lb, submat, subopt)
 
 
 @functools.lru_cache(maxsize=None)

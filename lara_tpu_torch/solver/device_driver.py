@@ -53,7 +53,7 @@ from typing import Dict, Iterator, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from lara_tpu_torch.ops import gotoh
+from lara_tpu_torch.ops import gotoh, gotoh_cuda
 from lara_tpu_torch.parallel import mesh
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.scoring.ribosum import encode_rna5
@@ -518,7 +518,7 @@ def _filter_and_build(store, chunk, params: Parameters, la_max: int,
         def upload(x):
             return torch.from_numpy(x).to(device)
 
-        packed = gotoh.edge_filter_skewed_words(
+        packed = gotoh_cuda.edge_filter_skewed_words(
             upload(seq_a), upload(seq_b), upload(las), upload(lbs),
             upload(np.asarray(params.score_matrix, np.int32)), go, ge,
             subopt, la_max, lb_max).cpu().numpy()

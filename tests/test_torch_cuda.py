@@ -1,6 +1,7 @@
 """The PyTorch port's CUDA kernels vs. their plain PyTorch versions, on a card.
 
-K1 + K2, K1-grid + K2-grid and K-res (``lara_tpu_torch.ops.gotoh_cuda``)
+K1 + K2, K1-grid + K2-grid, K-res and K4's sweep and pack (the edge
+filter; ``lara_tpu_torch.ops.gotoh_cuda``)
 and K3 (``lara_tpu_torch.solver.matching_cuda``) against the plain versions
 on the same CUDA tensors, with zero tolerance (every output is an
 integer), K1 + K2 at the 16S bucket's 1536 x 1536 included, K3 at ragged
@@ -82,8 +83,10 @@ def test_dp_kernels_match_plain(case, cuda):
     before = dict(_build.launches)
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE)
     tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, GO, GE, seq_t)
-    assert _build.launches["gotoh_dp"] == before["gotoh_dp"] + 1
-    assert _build.launches["gotoh_tb"] == before["gotoh_tb"] + 1
+    # K1's codes and finals, with K1's kernel now a template that K4's
+    # sweep shares (that instance never launches here)
+    moved = {name: _build.launches[name] - before[name] for name in before}
+    assert moved == dict.fromkeys(before, 0) | {"gotoh_dp": 1, "gotoh_tb": 1}
     dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
     tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
     torch.cuda.synchronize()
@@ -242,8 +245,8 @@ def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
                                  monkeypatch, tmp_path):
     """The fused path (-m 5) and the hybrid (-m 0) under each DP variant
     give on the card what they give on the CPU, and launch the variant's
-    kernels (K3 on the fused path only).  The three records' structures
-    conflict, so the pairs iterate."""
+    kernels (K3 on the fused path only) and K4 once for the one chunk.
+    The three records' structures conflict, so the pairs iterate."""
     from lara_tpu_torch.app import enumerate_pairs
     from lara_tpu_torch.io.records import InputStorage
     from lara_tpu_torch.params import Parameters
@@ -272,9 +275,11 @@ def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
     _build.reset_launches()
     on_card = solve(cuda)
     launched = {k for k, n in _build.launches.items() if n}
+    kernels = kernels | {"edge_sweep", "edge_pack"}
     if matching:
         kernels = kernels | {"matching_rounds"}
     assert launched == kernels
+    assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] == 1
     assert max(r[-1] for r in on_card) > 1
     assert on_card == solve(torch.device("cpu"))
 
@@ -457,6 +462,16 @@ def test_wrappers_reject_bad_inputs(cuda):
     cols = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="live"):
         matching_cuda.rounds_loop_cuda(cols, cols, cols, cols, cols, 5)
+    submat = torch.zeros((5, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="seq_a"):
+        gotoh_cuda.edge_filter_skewed_words(
+            cols.long(), cols, la, la, submat, GO, GE, 0, 4, 4)
+    with pytest.raises(ValueError, match="submat"):
+        gotoh_cuda.edge_filter_skewed_words(
+            cols, cols, la, la, submat[:4], GO, GE, 0, 4, 4)
+    with pytest.raises(ValueError, match="seq_b"):
+        gotoh_cuda.edge_filter_skewed_words(
+            cols, cols, la, la, submat, GO, GE, 0, 4, 5)
 
 
 def test_dp_kernels_at_16s_bucket(cuda):
@@ -481,6 +496,67 @@ def test_dp_kernels_at_16s_bucket(cuda):
                "dirs")
     for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
         _int_equal(got, want, field)
+
+
+def _edge_problem(b, la_max, lb_max, seed, dev):
+    """Rna5 residues (padded with 4, as the driver pads) in ragged lanes,
+    one of them full size, and the default parameters' filter constants."""
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.types import f2i
+
+    rng = np.random.default_rng(seed)
+    la = rng.integers(1, la_max + 1, b).astype(np.int32)
+    lb = rng.integers(1, lb_max + 1, b).astype(np.int32)
+    la[0], lb[0] = la_max, lb_max
+    if b > 2:
+        la[1], lb[2] = 1, 1
+    seq_a = np.full((b, la_max), 4, np.int32)
+    seq_b = np.full((b, lb_max), 4, np.int32)
+    for k in range(b):
+        seq_a[k, :la[k]] = rng.integers(0, 4, la[k])
+        seq_b[k, :lb[k]] = rng.integers(0, 4, lb[k])
+    params = Parameters(in_file="<test>")
+    submat = np.asarray(params.score_matrix, np.int32)
+    inputs = tuple(torch.from_numpy(x).to(dev)
+                   for x in (seq_a, seq_b, la, lb, submat))
+    return inputs, (int(params.gap_open_int), int(params.gap_extend_int),
+                    int(f2i(params.suboptimal_diff)))
+
+
+# (batch, la_max, lb_max, seed): the tRNA chunk, a ragged non-square batch
+# (la_max not a multiple of 32), one 1x1 lane, one 16S lane
+EDGE_CASES = [(128, 96, 96, 41), (40, 333, 700, 43), (1, 1, 1, 45),
+              (1, 1536, 1536, 47)]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_filter_kernels_match_plain(case, cuda):
+    """K4 against its plain versions, exactly: the sweep's prefixes on the
+    cells inside both halves' rectangles and its finals, the pack on the
+    sweep's own output, and the wrapper's words against the plain filter
+    (two scans), at the default subopt and at 0; one launch of each."""
+    b, la_max, lb_max, seed = case
+    inputs, (go, ge, subopt) = _edge_problem(b, la_max, lb_max, seed, cuda)
+    before = dict(_build.launches)
+    prefix_k, finals_k = gotoh_cuda.edge_sweep(*inputs, go, ge)
+    words_k = gotoh_cuda.edge_pack(prefix_k, finals_k, *inputs, subopt)
+    moved = {name: _build.launches[name] - before[name] for name in before}
+    assert moved == dict.fromkeys(before, 0) | {"edge_sweep": 1,
+                                                "edge_pack": 1}
+    prefix_p, finals_p = gotoh.edge_sweep(*inputs, go, ge)
+    torch.cuda.synchronize()
+    _int_equal(finals_k, finals_p, "finals")
+    la2, lb2 = (torch.cat([x, x]) for x in inputs[2:4])
+    valid = _valid_cells(la2, lb2, la_max, lb_max, cuda)
+    _int_equal(torch.where(valid, prefix_k, 0),
+               torch.where(valid, prefix_p, 0), "prefix")
+    _int_equal(words_k, gotoh.edge_pack(prefix_k, finals_k, *inputs, subopt),
+               "pack")
+    for cut in (subopt, 0):
+        _int_equal(gotoh_cuda.edge_filter_skewed_words(
+            *inputs, go, ge, cut, la_max, lb_max),
+            gotoh.edge_filter_skewed_words(*inputs, go, ge, cut, la_max,
+                                           lb_max), f"words at {cut}")
 
 
 def _write_family(path, lengths, seed):
@@ -530,7 +606,8 @@ def _solve_library(path, dev, **kw):
 
 def test_refill_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
     """Lane refill on the card (15 pairs through 4 lanes, dispatches of 15
-    iterations) writes the CPU's bytes and launches K1, K2 and K3."""
+    iterations) writes the CPU's bytes and launches K1, K2 and K3, and K4
+    once for each window of models the refill filters."""
     from lara_tpu_torch.solver import device_driver
 
     for key in ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_SOLVER"):
@@ -540,10 +617,21 @@ def test_refill_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
     monkeypatch.setenv("LARA_REFILL", "1")
     monkeypatch.setenv("LARA_MAX_BATCH", "4")
     monkeypatch.setenv("LARA_CHUNK", "15")
+    windows = []
+    filter_and_build = device_driver._filter_and_build
+
+    def spy(store, chunk, *args):
+        windows.append(len(chunk))
+        return filter_and_build(store, chunk, *args)
+
+    monkeypatch.setattr(device_driver, "_filter_and_build", spy)
     _build.reset_launches()
     on_card = _solve_library(path, cuda, num_iterations=60)
     assert {k for k, n in _build.launches.items() if n} == {
-        "gotoh_dp", "gotoh_tb", "matching_rounds"}
+        "gotoh_dp", "gotoh_tb", "matching_rounds", "edge_sweep", "edge_pack"}
+    assert sum(windows) == 15 and len(windows) > 1
+    assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] \
+        == len(windows)
     assert device_driver.last_refill.pairs == 15
     assert device_driver.last_refill.dispatches > 1
     assert on_card == cpu

@@ -4,9 +4,10 @@
 (parameters, input and output, scoring, interaction models, the scalar
 mirror, the native libraries, the MSA, the structure predictor) and
 ``chip_smoke.py`` its own workloads (``lara_tpu_torch.workloads``).  An
-AST scan of every port module and of ``chip_smoke.py`` finds no import of
-``lara_tpu`` or ``bench``; a subprocess that imports every port module and
-runs the CLI on every path loads neither JAX nor ``lara_tpu``; and the
+AST scan of every port module, ``chip_smoke.py`` and ``edge_filter_ab.py``
+finds no import of ``lara_tpu`` or ``bench``; a subprocess that imports
+every port module and runs the CLI on every path loads neither JAX nor
+``lara_tpu``; and the
 copies give what the originals give on the same inputs, with zero
 tolerance.
 
@@ -167,7 +168,8 @@ def _foreign_imports(path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [os.path.join(REPO, "chip_smoke.py")],
+    "path", PORT_FILES + [os.path.join(REPO, name)
+                          for name in ("chip_smoke.py", "edge_filter_ab.py")],
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_the_jax_package(path):
     assert _foreign_imports(path) == []
