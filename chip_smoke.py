@@ -10,10 +10,11 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    (integer outputs, zero tolerance), at the main path's shapes, and time
    both with CUDA events beside the kernel's bound (bytes over 3.35 TB/s or
    operations over 67 T/s, from this batch's data):
-   K1 + K2 (wavefront DP + traceback), K1-grid + K2-grid (one launch per
-   block of diagonals) and K-res (both in one CTA, codes in shared memory)
-   at B=128 96x96 and B=32 320x320, K1 + K2 at the 16S chunk's B=32
-   1536x1536 and at a ragged non-square B=40 333x700; K1 both in the
+   K1 + K2 (wavefront DP + traceback) and K1-grid + K2-grid (the same
+   kernels over pre-skewed scores and diagonal-major codes, one launch
+   each) at B=128 96x96, B=32 320x320 and the 16S chunk's B=32 1536x1536,
+   K-res (both in one CTA, codes in shared memory) at the first two, K1 +
+   K2 at a ragged non-square B=40 333x700; K1 both in the
    wrapper's clusters of CTAs per pair and at one CTA per pair; K2 as the
    main path runs it, after a K1 that has just written its codes (the
    pair's time less K1's); K3 (greedy matching) at the main path's B=128
@@ -40,13 +41,15 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    the library bytes must equal the library built from the native results,
    and the launch counts, set to 0 before each run, must show exactly the
    kernels the run is meant to launch, K4's two once per chunk the run
-   filtered (a spy on ``device_driver._filter_and_build`` counts them).
+   filtered (a spy on ``device_driver._filter_and_build`` counts them),
+   and the fused runs of one chunk K1 + K2 + K3 (under ``LARA_DP_GRID=1``
+   K1-grid + K2-grid + K3) exactly once per iteration.
    16S runs again under
    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
    under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
-   ``LARA_PIPELINE=1`` in turns; each must write the same bytes.  The
-   fused runs of one chunk must launch K1, K2 and K3 exactly once per
-   iteration of each shard's dispatches.  tRNA and 16S run again with
+   ``LARA_PIPELINE=1`` in turns; each must write the same bytes.  Over
+   shards the count is once per iteration of each shard's dispatches.
+   tRNA and 16S run again with
    each chunk's lanes split over two shards of one card (``[cuda:0,
    cuda:0]``, ``lara_tpu_torch.parallel.mesh``; and over every card where
    there are several), in turns with one device, each with the one-device
@@ -56,9 +59,10 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    (``benchmark/data/{trna,rrna5s,srp}``) run with ``--predict builtin
    --msa``, every pair against native, SPS and MCC printed by the port's
    ``evaluate``;
-4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks: the
-   unprofiled wall per iteration, and from ``torch.profiler`` the device
-   busy share, kernels per iteration and the K1/K2/K3 time; K3 is held
+4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks, and of
+   the tRNA chunk under ``LARA_DP_GRID=1``: the unprofiled wall per
+   iteration, and from ``torch.profiler`` the device busy share, kernels
+   per iteration and the K1/K2/K3 (K1-grid/K2-grid/K3) time; K3 is held
    against the plain version, and timed, on the solver's own arguments of
    iterations 1-3 and 25.
 
@@ -88,9 +92,10 @@ KERNELS = {
                  "lara_tpu/ops/gotoh_pallas.py:366"),
     "matching_rounds": ("lara_tpu_torch/csrc/matching.cu",
                         "lara_tpu/solver/matching_pallas.py:250"),
-    "gotoh_grid_dp": ("lara_tpu_torch/csrc/gotoh_grid.cu",
+    # K1's and K2's kernels over the grid variant's layouts
+    "gotoh_grid_dp": ("lara_tpu_torch/csrc/gotoh_dp.cu",
                       "lara_tpu/ops/gotoh_pallas.py:41"),
-    "gotoh_grid_tb": ("lara_tpu_torch/csrc/gotoh_grid.cu",
+    "gotoh_grid_tb": ("lara_tpu_torch/csrc/gotoh_dp.cu",
                       "lara_tpu/ops/gotoh_pallas.py:145"),
     # one kernel for both resident TPU kernels (K1-res :468, K2-res :550)
     "gotoh_resident": ("lara_tpu_torch/csrc/gotoh_resident.cu",
@@ -176,12 +181,13 @@ def _dp_bounds(la, lb, la_max, tb):
             "gotoh_grid_tb": k2, "gotoh_resident": res}
 
 
-def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
-    """K1 + K2, and with ``variants`` K1-grid + K2-grid and K-res, against
-    the plain DP and traceback on one random batch.  The variants compute
-    the plain versions' functions, so their plain times are K1's and K2's.
-    K2 is timed as the main path runs it: each rep runs K1 and then K2 on
-    the codes K1 has just written, and K2's time is the pair's less K1's.
+def _dp_phase(b, la_max, lb_max, seed, dev, stats, grid=True,
+              resident=True):
+    """K1 + K2, with ``grid`` K1-grid + K2-grid and with ``resident`` K-res,
+    against the plain DP and traceback on one random batch.  The variants
+    compute the plain versions' functions, so their plain times are K1's
+    and K2's.  K2 and K2-grid are timed as the main path runs them, after
+    a fresh K1 or K1-grid (:func:`_forward_then_walk`).
     Where the wrapper runs K1 in clusters of several CTAs per pair, one CTA
     per pair is timed beside it."""
     import torch
@@ -200,8 +206,8 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
     pssm_t, seq_t, la_t, lb_t = (torch.from_numpy(x).to(dev)
                                  for x in (pssm, seq, la, lb))
     dchunk = gotoh_plan.fused_dchunk(la_max, lb_max)
-    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT)) if variants else None
-    if variants and gotoh_plan.resident_bytes(la_max, lb_max) \
+    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT)) if grid else None
+    if resident and gotoh_plan.resident_bytes(la_max, lb_max) \
             > gotoh_cuda.smem_optin(dev):
         raise AssertionError(f"{la_max}x{lb_max} does not fit K-res")
 
@@ -212,11 +218,12 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
     tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, go, ge,
                                    seq_t)
     tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, go, ge, seq_t)
-    if variants:
+    if grid:
         dirs_g, finals_g = gotoh_cuda.dp_forward_grid(skewed, la_t, lb_t, go,
                                                       ge, dchunk)
         tb_g = gotoh_cuda.dp_traceback_grid(dirs_g, finals_g, la_t, lb_t, go,
                                             ge, seq_t, dchunk)
+    if resident:
         tb_r = gotoh_cuda.align_resident(pssm_t, la_t, lb_t, go, ge, seq_t)
     torch.cuda.synchronize()
     # direction codes are defined on the valid cells (i <= la, d-i <= lb)
@@ -236,13 +243,13 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
     errs = {"gotoh_dp": max(dp_err(dirs_k, finals_k), dp_err(dirs_1,
                                                              finals_1)),
             "gotoh_tb": tb_err(tb_k)}
-    if variants:
+    if grid:
         errs.update({
             "gotoh_grid_dp": dp_err(
                 dirs_g[:la_max + lb_max + 1].permute(1, 0, 2), finals_g),
-            "gotoh_grid_tb": tb_err(tb_g),
-            "gotoh_resident": tb_err(tb_r),
-        })
+            "gotoh_grid_tb": tb_err(tb_g)})
+    if resident:
+        errs["gotoh_resident"] = tb_err(tb_r)
     if any(errs.values()):
         raise AssertionError(f"a DP kernel disagrees with the plain version "
                              f"at B={b} {la_max}x{lb_max}: {errs}")
@@ -252,25 +259,29 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
     plain_tb = _time_ms(lambda: gotoh.dp_traceback(
         dirs_p, finals_p, la_t, lb_t, go, ge, seq_t), 2)
 
-    def k1_k2():
-        dirs, finals = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
-        gotoh_cuda.dp_traceback(dirs, finals, la_t, lb_t, go, ge, seq_t)
-
-    k1_ms = _time_ms(lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go,
-                                                   ge), 50)
-    pair_ms = _time_ms(k1_k2, 50)
+    k1_ms, k2_ms = _forward_then_walk(
+        lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge),
+        lambda dirs, finals: gotoh_cuda.dp_traceback(
+            dirs, finals, la_t, lb_t, go, ge, seq_t))
     k2_alone = _time_ms(lambda: gotoh_cuda.dp_traceback(
         dirs_k, finals_k, la_t, lb_t, go, ge, seq_t), 50)
     clusters = gotoh_cuda.cluster_size(b, la_max, lb_max, dev)
     k1_one = k1_ms if clusters == 1 else _time_ms(
         lambda: gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge, cluster=1),
         50)
-    times = {"gotoh_dp": (k1_ms, plain_dp),
-             "gotoh_tb": (pair_ms - k1_ms, plain_tb)}
-    if variants:
-        times.update(_variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t,
-                                    dchunk, dirs_g, finals_g, plain_dp,
-                                    plain_tb))
+    times = {"gotoh_dp": (k1_ms, plain_dp), "gotoh_tb": (k2_ms, plain_tb)}
+    if grid:
+        grid_ms = _forward_then_walk(
+            lambda: gotoh_cuda.dp_forward_grid(skewed, la_t, lb_t, go, ge,
+                                               dchunk),
+            lambda dirs, finals: gotoh_cuda.dp_traceback_grid(
+                dirs, finals, la_t, lb_t, go, ge, seq_t, dchunk))
+        times["gotoh_grid_dp"] = (grid_ms[0], plain_dp)
+        times["gotoh_grid_tb"] = (grid_ms[1], plain_tb)
+    if resident:
+        times["gotoh_resident"] = (
+            _time_ms(lambda: gotoh_cuda.align_resident(
+                pssm_t, la_t, lb_t, go, ge, seq_t), 50), plain_dp + plain_tb)
     bounds = _dp_bounds(la.astype(np.int64), lb.astype(np.int64), la_max,
                         tb_p)
     shape = f"B={b} {la_max}x{lb_max}"
@@ -284,25 +295,17 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, variants=True):
               f"ms ({bound_by})")
     print(f"  {'':16s} {shape:24s} K1 {clusters} CTA(s) per pair "
           f"{k1_ms:.4f} ms, 1 CTA per pair {k1_one:.4f} ms; K1 + K2 "
-          f"{pair_ms:.4f} ms; K2 alone on warm codes {k2_alone:.4f} ms")
+          f"{k1_ms + k2_ms:.4f} ms; K2 alone on warm codes {k2_alone:.4f} ms")
 
 
-def _variant_times(pssm_t, skewed, la_t, lb_t, go, ge, seq_t, dchunk, dirs_g,
-                   finals_g, plain_dp, plain_tb):
-    from lara_tpu_torch.ops import gotoh_cuda
-
-    return {
-        "gotoh_grid_dp": (
-            _time_ms(lambda: gotoh_cuda.dp_forward_grid(
-                skewed, la_t, lb_t, go, ge, dchunk), 20), plain_dp),
-        "gotoh_grid_tb": (
-            _time_ms(lambda: gotoh_cuda.dp_traceback_grid(
-                dirs_g, finals_g, la_t, lb_t, go, ge, seq_t, dchunk), 20),
-            plain_tb),
-        "gotoh_resident": (
-            _time_ms(lambda: gotoh_cuda.align_resident(
-                pssm_t, la_t, lb_t, go, ge, seq_t), 50), plain_dp + plain_tb),
-    }
+def _forward_then_walk(forward, walk):
+    """(ms of ``forward``, ms of ``walk`` as the main path runs it): each rep
+    of the pair runs ``forward`` and then ``walk`` on the codes and finals
+    it has just written, and the walk's time is the pair's less the
+    forward's."""
+    forward_ms = _time_ms(forward, 50)
+    pair_ms = _time_ms(lambda: walk(*forward()), 50)
+    return forward_ms, pair_ms - forward_ms
 
 
 def _edge_phase(b, la_max, lb_max, seed, dev, stats):
@@ -759,9 +762,17 @@ def _mixed_path(family, dev, tmp, expect):
     return run
 
 
-def _exact_launches(name, launches, results, shards):
-    """Gate: a fused run of one chunk over ``shards`` shards launched K1, K2
-    and K3 exactly once per iteration of each shard's dispatches.  Lane k
+#: the fused path's DP and matching kernels, by default and under
+#: ``LARA_DP_GRID=1``
+FUSED_ITERATION = ("gotoh_dp", "gotoh_tb", "matching_rounds")
+GRID_ITERATION = ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds")
+
+
+def _exact_launches(name, launches, results, shards,
+                    kernels=FUSED_ITERATION):
+    """Gate: a fused run of one chunk over ``shards`` shards launched each
+    of ``kernels`` (K1, K2 and K3, or K1-grid, K2-grid and K3) exactly once
+    per iteration of each shard's dispatches.  Lane k
     holds the chunk's pair k (results in task order), the lanes pad to
     ``device_driver._padded_batch`` and then to a multiple of the shards
     (padding lanes converge in one iteration), and each shard runs
@@ -775,7 +786,7 @@ def _exact_launches(name, launches, results, shards):
     per, chunk = lanes // shards, device_solver.dispatch_size()
     ran = [min(500, -(-max(iters[k * per:(k + 1) * per]) // chunk) * chunk)
            for k in range(shards)]
-    want = {k: sum(ran) for k in ("gotoh_dp", "gotoh_tb", "matching_rounds")}
+    want = {k: sum(ran) for k in kernels}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"{name}: launched {got}, expected {want} "
@@ -946,10 +957,12 @@ def _k3_calls(keep):
         device_solver.greedy_matching_queue = real
 
 
-def _profile_phase(label, records, dev, stats, n_iter=25):
-    """Where one chunk's solve spends its time: the unprofiled wall of
-    ``n_iter`` warm iterations, and from ``torch.profiler`` over the same
-    iterations the device time, kernels per iteration and K1/K2/K3 time.
+def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
+    """Where one chunk's solve spends its time, under the switches ``env``
+    (``LARA_DP_GRID=1``: K1-grid and K2-grid in place of K1 and K2): the
+    unprofiled wall of ``n_iter`` warm iterations, and from
+    ``torch.profiler`` over the same iterations the device time, kernels
+    per iteration and K1/K2/K3 time.
     The busy share divides device time by the UNPROFILED wall (the profiler
     itself slows the host).  K3's arguments in iterations 1, 2, 3 and
     ``n_iter`` of the first solve are kept, and K3 is held against the
@@ -980,25 +993,35 @@ def _profile_phase(label, records, dev, stats, n_iter=25):
             scan_steps)
         torch.cuda.synchronize()
 
-    with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
+    env = env or {}
+    os.environ.update(env)
+    try:
+        with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
+            solve()
+        start = time.perf_counter()
         solve()
-    start = time.perf_counter()
-    solve()
-    wall_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        solve()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve()
+    finally:
+        for key in env:
+            del os.environ[key]
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    # K1 is dp_wave_kernel<false, false>, K1-grid <false, true>; K2 and
+    # K2-grid are both dp_walk_kernel
     ours = {name: sum(e.self_device_time_total for e in device
                       if f"{name}_kernel" in e.key) / n_iter
             for name in ("dp_wave", "dp_walk", "matching_rounds")}
+    names = "K1-grid/K2-grid/K3" if env.get("LARA_DP_GRID") else "K1/K2/K3"
+    label += "".join(f" {k}={v}" for k, v in env.items())
     print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations: "
           f"{wall_ms / n_iter:.3f} ms/iteration unprofiled, device busy "
           f"{busy_ms / n_iter:.3f} ms/iteration ({busy_ms / wall_ms:.1%}), "
           f"{sum(e.count for e in device) / n_iter:.1f} kernels/iteration, "
-          "K1/K2/K3 " + " / ".join(f"{us:.1f}" for us in ours.values())
+          f"{names} " + " / ".join(f"{us:.1f}" for us in ours.values())
           + " us/iteration")
     for k in sorted(calls):
         args = calls[k]
@@ -1047,11 +1070,12 @@ def main() -> int:
     stats = {name: [] for name in KERNELS}
     _dp_phase(128, 96, 96, 1, dev, stats)
     _dp_phase(32, 320, 320, 2, dev, stats)
-    # the 16S chunk: K1 with 55 KB of opt-in shared memory, K2's walk of
-    # up to 3072 steps (K-res does not fit, the grid kernels are off path)
-    _dp_phase(32, 1536, 1536, 3, dev, stats, variants=False)
+    # the 16S chunk: K1 and K1-grid with 180 KB of opt-in shared memory
+    # per CTA, K2's and K2-grid's walks of up to 3072 steps (K-res does
+    # not fit)
+    _dp_phase(32, 1536, 1536, 3, dev, stats, resident=False)
     # ragged and non-square: la_max not a multiple of 32, 32 < B < 132
-    _dp_phase(40, 333, 700, 4, dev, stats, variants=False)
+    _dp_phase(40, 333, 700, 4, dev, stats, grid=False, resident=False)
     # K3 first at the main path's shapes (the tRNA and ~300 nt chunks have
     # D=1024 dual entries, so W=512 queue columns, the 16S chunk D=3072, so
     # W=1536; S=LA line slots), then the fuzz widths at every lookahead
@@ -1076,7 +1100,7 @@ def main() -> int:
         ("16S-1530nt-batch28", make_long_family(n=8, length=1530, seed=47)),
     ]
     trna, rrna, long16 = families
-    fused = ("gotoh_dp", "gotoh_tb", "matching_rounds") + K4
+    fused = FUSED_ITERATION + K4
     launches = dict.fromkeys(KERNELS, 0)
 
     def count(run):
@@ -1120,17 +1144,19 @@ def main() -> int:
                          matching=0)[0])
         count(_main_path(*rrna, dev, tmp, ("gotoh_resident",) + K4,
                          matching=12, env={"LARA_DP_RESIDENT": "1"})[0])
-        print("fused path, grid-stepped DP kernels:")
-        count(_main_path(
-            *trna, dev, tmp,
-            ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds") + K4,
-            env={"LARA_DP_GRID": "1"})[0])
+        print("fused path, grid-variant DP kernels (LARA_DP_GRID=1):")
+        grid_run = _main_path(*trna, dev, tmp, GRID_ITERATION + K4,
+                              env={"LARA_DP_GRID": "1"})
+        _exact_launches(f"{trna[0]} LARA_DP_GRID=1", grid_run[0],
+                        grid_run[3].results, 1, kernels=GRID_ITERATION)
+        count(grid_run[0])
     print(f"  kernel launches, each from the runs meant to launch it: "
           f"{launches}")
     print("where one chunk's solve spends its time:")
     for label, records in (trna, rrna):
         _profile_phase(label, records, dev, stats)
     _profile_phase(*long16, dev, stats)
+    _profile_phase(*trna, dev, stats, env={"LARA_DP_GRID": "1"})
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "lara_tpu", "bench")
                      or m.startswith(("jax.", "lara_tpu.")))

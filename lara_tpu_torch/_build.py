@@ -149,11 +149,11 @@ def library() -> ctypes.CDLL:
             ptr, ptr]
         lib.lara_gotoh_grid_dp.restype = i32
         lib.lara_gotoh_grid_dp.argtypes = [
-            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.lara_gotoh_grid_tb.restype = i32
         lib.lara_gotoh_grid_tb.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
-            ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr,
+            ptr]
         lib.lara_gotoh_resident.restype = i32
         lib.lara_gotoh_resident.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]

@@ -1,6 +1,6 @@
 // K4's pack: the edge filter's threshold and bit packing, hand-written for
-// Hopper (sm_90a).  With K4's sweep (dp_wave_kernel<true>, gotoh_dp.cu) it
-// replaces the edge filter that lara_tpu/ops/gotoh.py:336-383
+// Hopper (sm_90a).  With K4's sweep (dp_wave_kernel<true, false>,
+// gotoh_dp.cu) it replaces the edge filter that lara_tpu/ops/gotoh.py:336-383
 // (edge_filter_skewed_words) runs as two XLA scans and a pack.  The plain
 // version is lara_tpu_torch/ops/gotoh.py::edge_pack.
 //

@@ -1,5 +1,5 @@
-// Device code shared by the wavefront DP variants K1-grid (gotoh_grid.cu) and
-// K-res (gotoh_resident.cu): K1's cell update and K2's traceback step
+// Device code of K-res (gotoh_resident.cu), the one DP variant that runs a
+// diagonal per block barrier: K1's cell update and K2's traceback step
 // (gotoh_dp.cu), with the same int32 arithmetic.  Sums wrap as XLA's do: cells
 // outside a lane's rectangle add the NEG_INF sentinel to itself, and signed
 // overflow is undefined in C++, so every add goes through uint32_t.

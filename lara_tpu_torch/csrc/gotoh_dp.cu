@@ -1,12 +1,31 @@
 // K1 and K2 of the port: the forward affine-Gotoh wavefront and its
-// traceback, hand-written for Hopper (sm_90a).
+// traceback, hand-written for Hopper (sm_90a), over two layouts.
 //
-// K1 (dp_wave_kernel) replaces lara_tpu/ops/gotoh_pallas.py:253
+// K1 (dp_wave_kernel<false, false>) replaces lara_tpu/ops/gotoh_pallas.py:253
 // (_make_stream_kernel); K2 (dp_walk_kernel) replaces gotoh_pallas.py:366
-// (_make_tb_stream_kernel).  The TPU's grid-stepped and resident layouts of
-// the same functions have their own kernels in gotoh_grid.cu and
-// gotoh_resident.cu.  The plain versions are
-// lara_tpu_torch/ops/gotoh.py::dp_forward and ::dp_traceback.
+// (_make_tb_stream_kernel).  K1-grid (dp_wave_kernel<false, true>) replaces
+// gotoh_pallas.py:41 (_make_kernel, pallas_call :654 and :876) and K2-grid
+// (dp_walk_kernel over the grid layout) replaces :145
+// (_make_traceback_kernel, pallas_call :984); LARA_DP_GRID=1 selects them.
+// The resident layout has its own kernel in gotoh_resident.cu.  The plain
+// versions are lara_tpu_torch/ops/gotoh.py::dp_forward, ::gotoh_scan and
+// ::dp_traceback.
+//
+// The two layouts: K1 reads a score grid [B, LA, LB] and writes its codes
+// lane-major, [B, D, W]; K1-grid reads the pre-skewed scores [D, B, W] (the
+// input of gotoh_scan_pallas) and writes its codes diagonal-major,
+// [Dp, B, W] (Dp = D rounded up to dchunk; rows past a lane's la + lb stay
+// undefined).  The TPU kernels of the grid layout make a block of dchunk
+// diagonals a sequential grid step and keep the wavefronts in VMEM scratch
+// between steps; here, as in K1, a loop inside the block walks every
+// diagonal, so K1-grid and K2-grid are K1 and K2 in the grid layout, one
+// launch each per alignment call: only the score loads, the code stores
+// and K2's strides differ, and dchunk only sets Dp.  So the same things
+// bound them: K1-grid the chain of diagonals and the integer issue rate, as
+// K1 (below); K2-grid the latency of its walk, as K2; and the design below
+// answers both.  (The first port of the grid layout ran one launch per
+// block of dchunk diagonals, the wavefronts reloaded from global memory at
+// each, and a walk that read a code from global memory at every step.)
 //
 // K1: what bounds it.  A pair is a chain of la+lb+1 dependent anti-diagonals
 // of about 20 integer operations per cell, reading a 4-byte score and
@@ -33,10 +52,15 @@
 //     takes strips k, k + C*nw, ... until la is covered;
 //   * scores staged ahead: each lane copies its own score row into shared
 //     memory by cp.async, 32 columns at a time into a ring of three chunks,
-//     one chunk ahead of the sweep; no score load sits on the chain;
+//     one chunk ahead of the sweep; no score load sits on the chain.
+//     K1-grid stages 32 steps at a time into the same ring: lane t's score
+//     at step s is skewed[base+s, b, base+t], so a step's 32 copies are one
+//     contiguous 128-byte row of the skewed stream (4-byte copies: W is odd
+//     in general), and lane t keeps step s in the slot where K1 keeps
+//     column s-t-1, which spreads a step's 32 reads over the 32 banks;
 //   * coalesced code stores: at warp step s lane t writes cell
 //     (base+t, s-t) on diagonal base+s, so a step is one 32-byte store into
-//     dirs[b, base+s, base:base+32];
+//     dirs[b, base+s, base:base+32] (K1-grid: dirs[base+s, b, base:base+32]);
 //   * a short step: only the first 32 steps of a strip (and strip 0) test
 //     for row 0 and column 0, lane 31 writes the ring once per block of
 //     eight steps, and the ring is polled without branches;
@@ -61,8 +85,10 @@
 // window, anchored where the walk stands at the switch, is in flight.  The
 // seq-score sum comes off the chain: after the walk the warp sums
 // seq[b, i, partner[i]] over the matched rows (uint32 adds commute).
+// K2-grid is the same kernel over the diagonal-major codes: a lane starts
+// at byte b*W and a diagonal is B*W bytes on, where K2 has b*D*W and W.
 //
-// K4's sweep is K1 in a prefix mode (dp_wave_kernel<true>): the same
+// K4's sweep is K1 in a prefix mode (dp_wave_kernel<true, false>): the same
 // strips, rings and step, but each cell stores the int32 max(M, H, V) where
 // K1 stores its int8 code (128 bytes per warp step, still coalesced), and a
 // lane's scores come from the sequences and the 5x5 substitution matrix
@@ -261,12 +287,15 @@ __device__ __forceinline__ int wave_cell(int i, int j, int sc, int dm, int dh,
 // Grid: batch * C CTAs in clusters of C (one cluster per pair), nw warps
 // each.  Shared memory: nw * kWarpInts ints, then cons[nw]: the cells
 // consumed from the ring that warp w feeds (written by its consumer).
-// K1 (kPrefix false) reads the score grid pssm [batch, la_max, lb_max] and
-// the border codes and writes int8 codes to out; K4's sweep (kPrefix true)
-// reads seq_a [batch/2, la_max], seq_b [batch/2, lb_max] and submat [5, 5]
-// (lane b < batch/2 forward, lane batch/2 + b the reversed sequences of
-// pair b, with the la and lb of pair b) and writes int32 prefixes to out.
-template <bool kPrefix>
+// K1 (kPrefix and kSkewed false) reads the score grid pssm
+// [batch, la_max, lb_max] and the border codes and writes int8 codes to out
+// [batch, D, W]; K1-grid (kSkewed) reads the pre-skewed scores from pssm
+// [D, batch, W] (D = la_max + lb_max + 1) and writes its codes to out
+// [Dp, batch, W]; K4's sweep (kPrefix) reads seq_a [batch/2, la_max], seq_b
+// [batch/2, lb_max] and submat [5, 5] (lane b < batch/2 forward, lane
+// batch/2 + b the reversed sequences of pair b, with the la and lb of pair
+// b) and writes int32 prefixes to out [batch, D, W].
+template <bool kPrefix, bool kSkewed>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     dp_wave_kernel(const int* __restrict__ pssm, const int* __restrict__ seq_a,
                    const int* __restrict__ seq_b,
@@ -276,6 +305,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                    const int8_t* __restrict__ border, int la_max, int lb_max,
                    int go, int ge, int nw, int batch, int vec16,
                    void* __restrict__ out, int* __restrict__ finals) {
+  static_assert(!(kPrefix && kSkewed), "K4's sweep has no skewed layout");
   using Cell = std::conditional_t<kPrefix, int, int8_t>;
   extern __shared__ __align__(16) int smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -302,8 +332,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int ncol = lb + 1;
   const int nstrips = (la + 32) / 32;  // rows 0..la
   const int P = C * nw;
+  // diagonal d of lane b's codes (K1-grid: also of its scores) starts at
+  // d * dstride in out_b (P_b)
+  const size_t dstride = kSkewed ? static_cast<size_t>(batch) * W : W;
   const int* P_b =
-      kPrefix ? pssm : pssm + static_cast<size_t>(b) * la_max * lb_max;
+      kPrefix   ? pssm
+      : kSkewed ? pssm + static_cast<size_t>(b) * W
+                : pssm + static_cast<size_t>(b) * la_max * lb_max;
   const int* sa =
       kPrefix ? seq_a + static_cast<size_t>(pair) * la_max : seq_a;
   const int* sb =
@@ -311,7 +346,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   // K4: lane x < 25 holds submat[x], read by shuffles
   const int sub_entry = kPrefix && lane < kAlpha * kAlpha ? submat[lane] : 0;
   Cell* out_b = static_cast<Cell*>(out) +
-                static_cast<size_t>(b) * (la_max + lb_max + 1) * W;
+                (kSkewed ? static_cast<size_t>(b) * W
+                         : static_cast<size_t>(b) * (la_max + lb_max + 1) * W);
 
   for (int k = rank + C * warp; k < nstrips; k += P) {
     const int base = 32 * k;
@@ -334,9 +370,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     int* in_cons = cluster.map_shared_rank(cons + p_warp, p_rank);
     const unsigned ring_at = smem_addr(ring), cons_at = smem_addr(cons + warp);
 
-    // score row i-1, columns [32c, 32c+32) into chunk slot c % 3
+    // score row i-1, columns [32c, 32c+32) into chunk slot c % 3 (K1-grid:
+    // the scores of steps [32c, 32c+32), each where K1 keeps column s-t-1)
     const bool row_ok = i >= 1 && i <= la;
-    const int* src_row = P_b + static_cast<size_t>(i - 1) * lb_max;
+    const int* src_row =
+        kSkewed ? P_b + static_cast<size_t>(base) * dstride + i
+                : P_b + static_cast<size_t>(i - 1) * lb_max;
     // K4: the first matrix entry of row i-1's residue (row x of the
     // reversed grid is A[la-1-x])
     const int sub_row =
@@ -356,6 +395,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             if (row_ok) dst[x] = v;
           }
         }
+      } else if constexpr (kSkewed) {
+        // cell (i, s - t) of step s lies on diagonal base + s; copy the
+        // cells 1 <= j <= lb (the border's scores are never read)
+        if (row_ok && c0 - lane <= lb) {
+          const int* src = src_row + static_cast<size_t>(c0) * dstride;
+          int slot = 32 * (c % 3) + kTileCols - 1 - lane;  // (c0 - t - 1)
+          if (slot >= kTileCols) slot -= kTileCols;        // mod 96
+#pragma unroll 8
+          for (int x = 0; x < 32; ++x) {
+            if (static_cast<unsigned>(c0 + x - lane - 1) <
+                static_cast<unsigned>(lb))
+              cp_async4(tile + slot, src);
+            src += dstride;
+            slot = slot == kTileCols - 1 ? 0 : slot + 1;
+          }
+        }
+        cp_async_commit();
       } else {
         if (row_ok && c0 < lb) {
           int* dst = tile + (c % 3) * 32;
@@ -378,7 +434,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int bcode = !kPrefix && i <= la ? border[i] : 0;
     const bool row_valid = i <= la;
     // code (K4: prefix) of cell (i, j) at out_b[(i + j) * W + i]; j = s - lane
-    Cell* outp = out_b + static_cast<size_t>(base) * W + i;
+    Cell* outp = out_b + static_cast<size_t>(base) * dstride + i;
     int in_slot = e_in % kRing, out_slot = e_out % kRing;
     int cons_seen = -kRing;  // the consumer's count, last read
     // the step at which this lane meets cell (la, lb), and the last column
@@ -452,7 +508,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             finals[batch + b] = ch;
             finals[2 * batch + b] = cv;
           }
-          outp += W;
+          outp += dstride;
         }
       };
       // only the first 32 steps of a strip meet column 0, only strip 0
@@ -496,27 +552,28 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 }
 
 // One warp per pair.  Shared memory: two windows of kWinRows x kWinBytes.
-// Window anchored at (da, ia): diagonals da-127 .. da, offsets ia-63 .. ia;
-// diagonal da-r starts at byte ((K - r*W) & 15) of its 80-byte row, K =
-// the byte index of (da, ia-63) in dirs.
+// Cell (i, d - i) of lane b is byte b * lane_stride + d * diag_stride + i of
+// dirs, total_bytes long (K2: [batch, D, W], lane_stride D * W and
+// diag_stride W; K2-grid: [Dp, batch, W], lane_stride W and diag_stride
+// batch * W).  Window anchored at (da, ia): diagonals da-127 .. da, offsets
+// ia-63 .. ia; diagonal da-r starts at byte ((K - r*diag_stride) & 15) of
+// its 80-byte row, K = the byte index of (da, ia-63) in dirs.
 __global__ void __launch_bounds__(32)
     dp_walk_kernel(const int8_t* __restrict__ dirs,
                    const int* __restrict__ finals,
                    const int* __restrict__ la_arr,
                    const int* __restrict__ lb_arr,
                    const int* __restrict__ seq, int batch, int la_max,
-                   int lb_max, int go, int ge, int* __restrict__ partner,
-                   int* __restrict__ scalars) {
+                   int lb_max, long long lane_stride, int diag_stride,
+                   long long total_bytes, int go, int ge,
+                   int* __restrict__ partner, int* __restrict__ scalars) {
   __shared__ __align__(16) uint8_t win[2][kWinRows * kWinBytes];
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
-  const int W = la_max + 1;
-  const int D = la_max + lb_max + 1;
-  const long long total_bytes = static_cast<long long>(batch) * D * W;
   int* row = partner + static_cast<size_t>(b) * la_max;
   for (int a = lane; a < la_max; a += 32) row[a] = -1;
 
-  const long long lane_base = static_cast<long long>(b) * D * W;
+  const long long lane_base = b * lane_stride;
   // copy the window anchored at (da, ia) into buffer w: lane t takes the
   // diagonals da-t, da-t-32, da-t-64, da-t-96
   auto load_window = [&](int w, int da, int ia) {
@@ -525,7 +582,7 @@ __global__ void __launch_bounds__(32)
       const int r = lane + 32 * q;
       if (da - r < 0) continue;
       const long long g =
-          lane_base + static_cast<long long>(da - r) * W + ia - 63;
+          lane_base + static_cast<long long>(da - r) * diag_stride + ia - 63;
       const long long a0 = g & ~15LL;
 #pragma unroll
       for (int x = 0; x < kWinBytes / 16; ++x) {
@@ -559,9 +616,9 @@ __global__ void __launch_bounds__(32)
     if (lane == 0) {
       const uint8_t* wb = win[cur];
       const long long k0 =
-          lane_base + static_cast<long long>(da) * W + ia - 63;
+          lane_base + static_cast<long long>(da) * diag_stride + ia - 63;
       const int kmod = static_cast<int>(k0 & 15);
-      const int wmod = W & 15;
+      const int wmod = diag_stride & 15;
       for (int n = 0; n < kSeg && (i > 0 || j > 0); ++n) {
         if (i == 0) {
           state = kHor;
@@ -626,9 +683,9 @@ bool ring_safe(int la_max, int lb_max, int cluster) {
   return strips <= p || p * (kRing + 28 - kSub) >= lb_max + 32;
 }
 
-// K1 (kPrefix false) or K4's sweep over ``batch`` lanes in clusters of
-// ``cluster`` CTAs per lane.
-template <bool kPrefix>
+// K1, K1-grid (kSkewed) or K4's sweep (kPrefix) over ``batch`` lanes in
+// clusters of ``cluster`` CTAs per lane.
+template <bool kPrefix, bool kSkewed>
 int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
                 const int* submat, const int* la, const int* lb,
                 const int8_t* border, int batch, int la_max, int lb_max,
@@ -642,7 +699,8 @@ int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
       (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      dp_wave_kernel<kPrefix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dp_wave_kernel<kPrefix, kSkewed>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -657,9 +715,9 @@ int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel<kPrefix>, pssm, seq_a, seq_b,
-                           submat, la, lb, border, la_max, lb_max, go, ge, nw,
-                           batch, vec16, out, finals);
+  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel<kPrefix, kSkewed>, pssm,
+                           seq_a, seq_b, submat, la, lb, border, la_max,
+                           lb_max, go, ge, nw, batch, vec16, out, finals);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -678,9 +736,20 @@ int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
                   void* stream) {
   const int vec16 = (lb_max % 4 == 0) &&
                     (reinterpret_cast<uintptr_t>(pssm) % 16 == 0);
-  return launch_wave<false>(pssm, nullptr, nullptr, nullptr, la, lb, border,
-                            batch, la_max, lb_max, go, ge, cluster, vec16,
-                            dirs, finals, stream);
+  return launch_wave<false, false>(pssm, nullptr, nullptr, nullptr, la, lb,
+                                   border, batch, la_max, lb_max, go, ge,
+                                   cluster, vec16, dirs, finals, stream);
+}
+
+// K1-grid: skewed [num_diag, batch, width] int32 in, dirs [Dp, batch, width]
+// (written on the valid cells only) and finals [3, batch] out.
+int lara_gotoh_grid_dp(const int* skewed, const int* la, const int* lb,
+                       const int8_t* border, int batch, int num_diag,
+                       int width, int go, int ge, int cluster, int8_t* dirs,
+                       int* finals, void* stream) {
+  return launch_wave<false, true>(skewed, nullptr, nullptr, nullptr, la, lb,
+                                  border, batch, width - 1, num_diag - width,
+                                  go, ge, cluster, 0, dirs, finals, stream);
 }
 
 // K4's sweep over 2 * pairs lanes: prefix [2 * pairs, D, W] int32 (written
@@ -689,9 +758,9 @@ int lara_edge_sweep(const int* seq_a, const int* seq_b, const int* submat,
                     const int* la, const int* lb, int pairs, int la_max,
                     int lb_max, int go, int ge, int cluster, int* prefix,
                     int* finals, void* stream) {
-  return launch_wave<true>(nullptr, seq_a, seq_b, submat, la, lb, nullptr,
-                           2 * pairs, la_max, lb_max, go, ge, cluster, 0,
-                           prefix, finals, stream);
+  return launch_wave<true, false>(nullptr, seq_a, seq_b, submat, la, lb,
+                                  nullptr, 2 * pairs, la_max, lb_max, go, ge,
+                                  cluster, 0, prefix, finals, stream);
 }
 
 int lara_gotoh_tb(const int8_t* dirs, const int* finals, const int* la,
@@ -700,8 +769,25 @@ int lara_gotoh_tb(const int8_t* dirs, const int* finals, const int* la,
                   void* stream) {
   if (reinterpret_cast<uintptr_t>(dirs) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long lane_bytes =
+      static_cast<long long>(la_max + lb_max + 1) * (la_max + 1);
   dp_walk_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      dirs, finals, la, lb, seq, batch, la_max, lb_max, go, ge, partner,
+      dirs, finals, la, lb, seq, batch, la_max, lb_max, lane_bytes,
+      la_max + 1, batch * lane_bytes, go, ge, partner, scalars);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2-grid: the walk over K1-grid's dirs [num_rows, batch, la_max + 1].
+int lara_gotoh_grid_tb(const int8_t* dirs, const int* finals, const int* la,
+                       const int* lb, const int* seq, int batch, int num_rows,
+                       int la_max, int lb_max, int go, int ge, int* partner,
+                       int* scalars, void* stream) {
+  if (reinterpret_cast<uintptr_t>(dirs) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int width = la_max + 1;
+  dp_walk_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      dirs, finals, la, lb, seq, batch, la_max, lb_max, width, batch * width,
+      static_cast<long long>(num_rows) * batch * width, go, ge, partner,
       scalars);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,8 @@ matched cells, plus the ordered line list with ``emit_lines=True``.  A plan
 * default: K1 (:func:`dp_forward`) + K2 (:func:`dp_traceback`),
   ``csrc/gotoh_dp.cu``;
 * ``LARA_DP_GRID=1``: K1-grid (:func:`dp_forward_grid`, also behind
-  :func:`gotoh_scan`) + K2-grid (:func:`dp_traceback_grid`),
-  ``csrc/gotoh_grid.cu``;
+  :func:`gotoh_scan`) + K2-grid (:func:`dp_traceback_grid`), K1's and K2's
+  kernels over the grid variant's layouts, ``csrc/gotoh_dp.cu``;
 * ``LARA_DP_RESIDENT=1``: K-res (:func:`align_resident`),
   ``csrc/gotoh_resident.cu``.
 
@@ -84,10 +84,17 @@ def _border_on(go: int, ge: int, width: int, device: torch.device):
 
 
 #: K1's constants (``csrc/gotoh_dp.cu``): warps per CTA at most, cells in
-#: a ring between strips, steps per block
+#: a ring between strips, steps per block, and the slots of a lane's score
+#: ring (three chunks of 32)
 K1_MAX_WARPS = 16
 K1_RING = 88
 K1_SUB = 8
+K1_TILE_COLS = 96
+#: K2's constants: the window's diagonals and bytes per diagonal (the 16-byte
+#: blocks that hold 64 offsets), and the steps walked per window
+K2_WIN_ROWS = 128
+K2_WIN_BYTES = 80
+K2_SEG = 32
 
 
 def ring_safe(la_max: int, lb_max: int, cluster: int) -> bool:
@@ -184,10 +191,13 @@ def _round_up(x: int, m: int) -> int:
 
 
 def dp_forward_grid(skewed: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
-                    go: int, ge: int, dchunk: int):
+                    go: int, ge: int, dchunk: int, cluster: int = 0):
     """(dirs [Dp, B, W] int8, finals [3, B] int32) over pre-skewed scores
-    [D, B, W] int32, Dp = D rounded up to ``dchunk`` (rows beyond D are
-    padding): K1-grid on the card, one launch per ``dchunk`` diagonals."""
+    [D, B, W] int32, D = la_max + lb_max + 1 and Dp = D rounded up to
+    ``dchunk`` (``dchunk`` sets nothing else; rows past a lane's la + lb
+    are padding).  K1-grid on the card, one launch, in clusters of
+    ``cluster`` CTAs per pair as :func:`dp_forward` (the launch raises where
+    :func:`ring_safe` refuses it)."""
     num_diag, b, width = skewed.shape
     num_rows = _round_up(num_diag, dchunk)
     if not skewed.is_cuda:
@@ -197,19 +207,21 @@ def dp_forward_grid(skewed: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
         dirs[:num_diag] = res.aux.to(torch.int8)
         return dirs, torch.stack([res.final_m, res.final_h, res.final_v])
     dev = skewed.device
+    if num_diag <= width:
+        raise ValueError(f"skewed has {num_diag} diagonals of width {width}; "
+                         "a lane needs la_max + lb_max + 1 with lb_max >= 1")
     _build.require(skewed, "skewed", I32, (num_diag, b, width), dev)
     _require_lanes(la, lb, b, dev)
-    state = torch.empty((b, 9 * width), dtype=I32, device=dev)
+    border = _border_on(int(go), int(ge), width, dev)
     dirs = torch.empty((num_rows, b, width), dtype=torch.int8, device=dev)
     finals = torch.empty((3, b), dtype=I32, device=dev)
-    lib, stream = _build.library(), _build.stream_of(skewed)
-    for d0 in range(0, num_rows, dchunk):
-        rc = lib.lara_gotoh_grid_dp(
-            skewed.data_ptr(), la.data_ptr(), lb.data_ptr(), b, width, d0,
-            dchunk, int(go), int(ge), state.data_ptr(), dirs.data_ptr(),
-            finals.data_ptr(), stream)
-        _build.check(rc, "gotoh_grid_dp")
-        _build.count("gotoh_grid_dp")
+    cluster = cluster or cluster_size(b, width - 1, num_diag - width, dev)
+    rc = _build.library().lara_gotoh_grid_dp(
+        skewed.data_ptr(), la.data_ptr(), lb.data_ptr(), border.data_ptr(), b,
+        num_diag, width, int(go), int(ge), cluster, dirs.data_ptr(),
+        finals.data_ptr(), _build.stream_of(skewed))
+    _build.check(rc, "gotoh_grid_dp")
+    _build.count("gotoh_grid_dp")
     return dirs, finals
 
 
@@ -227,8 +239,7 @@ def dp_traceback_grid(dirs: torch.Tensor, finals: torch.Tensor,
                       la: torch.Tensor, lb: torch.Tensor, go: int, ge: int,
                       seq_score: torch.Tensor, dchunk: int) -> Traceback:
     """Traceback over K1-grid's dirs [Dp, B, W]; K2-grid on the card, one
-    launch per ``dchunk`` diagonals from the last block to the first.
-    ``seq_score`` is [B, LA, LB] int32."""
+    launch.  ``seq_score`` is [B, LA, LB] int32."""
     num_rows, b, width = dirs.shape
     la_max = width - 1
     lb_max = seq_score.shape[2]
@@ -243,19 +254,14 @@ def dp_traceback_grid(dirs: torch.Tensor, finals: torch.Tensor,
     _build.require(finals, "finals", I32, (3, b), dev)
     _require_lanes(la, lb, b, dev)
     _build.require(seq_score, "seq_score", I32, (b, la_max, lb_max), dev)
-    walker = torch.empty((6, b), dtype=I32, device=dev)
     partner = torch.empty((b, la_max), dtype=I32, device=dev)
     scalars = torch.empty((4, b), dtype=I32, device=dev)
-    lib, stream = _build.library(), _build.stream_of(dirs)
-    for d_lo in range(num_rows - dchunk, -1, -dchunk):
-        rc = lib.lara_gotoh_grid_tb(
-            dirs.data_ptr(), finals.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            seq_score.data_ptr(), b, la_max, lb_max, d_lo,
-            int(d_lo == num_rows - dchunk), int(go), int(ge),
-            walker.data_ptr(), partner.data_ptr(), scalars.data_ptr(),
-            stream)
-        _build.check(rc, "gotoh_grid_tb")
-        _build.count("gotoh_grid_tb")
+    rc = _build.library().lara_gotoh_grid_tb(
+        dirs.data_ptr(), finals.data_ptr(), la.data_ptr(), lb.data_ptr(),
+        seq_score.data_ptr(), b, num_rows, la_max, lb_max, int(go), int(ge),
+        partner.data_ptr(), scalars.data_ptr(), _build.stream_of(dirs))
+    _build.check(rc, "gotoh_grid_tb")
+    _build.count("gotoh_grid_tb")
     return _traceback_of(partner, scalars)
 
 

@@ -5,8 +5,9 @@ Counterpart of ``_use_stream`` (``lara_tpu/ops/gotoh_pallas.py:622``),
 (``lara_tpu/solver/device_solver.py:81-96``), with the same switches and
 the same precedence:
 
-* ``LARA_DP_GRID=1``: K1-grid + K2-grid, one launch per block of
-  ``dchunk`` diagonals (``csrc/gotoh_grid.cu``);
+* ``LARA_DP_GRID=1``: K1-grid + K2-grid, K1's and K2's kernels over the
+  grid variant's layouts (pre-skewed scores in, diagonal-major codes of
+  ``Dp`` rows out), one launch each (``csrc/gotoh_dp.cu``);
 * else ``LARA_DP_RESIDENT=1``: K-res, forward sweep and traceback in one
   CTA per pair with the direction codes in shared memory
   (``csrc/gotoh_resident.cu``), where the pair fits the card's opt-in
@@ -16,8 +17,8 @@ the same precedence:
 
 The plan is arithmetic on the bucket's shape, made before any launch.  The
 JAX plan's VMEM halving of ``dchunk`` has no counterpart: on the card
-``dchunk`` only sets the grid variant's launch unit, and no output depends
-on it.
+``dchunk`` only pads the grid variant's codes to ``Dp`` rows (D rounded up
+to ``dchunk``), and no valid output depends on it.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ H100_SMEM_OPTIN = 232448
 
 class Plan(NamedTuple):
     variant: str  # STREAM, GRID or RESIDENT
-    dchunk: int   # diagonals per launch of the grid variant
+    dchunk: int   # the grid variant's codes pad to a multiple of it
 
 
 def fused_dchunk(la_max: int, lb_max: int) -> int:

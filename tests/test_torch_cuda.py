@@ -1,10 +1,12 @@
 """The PyTorch port's CUDA kernels vs. their plain PyTorch versions, on a card.
 
-K1 + K2, K1-grid + K2-grid, K-res and K4's sweep and pack (the edge
-filter; ``lara_tpu_torch.ops.gotoh_cuda``)
+K1 + K2, K1-grid + K2-grid (K1's and K2's kernels over the grid
+variant's layouts), K-res and K4's sweep and pack (the edge filter;
+``lara_tpu_torch.ops.gotoh_cuda``)
 and K3 (``lara_tpu_torch.solver.matching_cuda``) against the plain versions
 on the same CUDA tensors, with zero tolerance (every output is an
-integer), K1 + K2 at the 16S bucket's 1536 x 1536 included, K3 at ragged
+integer), K1 + K2 and K1-grid + K2-grid at the 16S bucket's 1536 x 1536
+included, K3 at ragged
 widths, arbitrary ids, lookahead 1-8, a queue wider than its ring and its
 shared-memory set, and on the solver's own 16S queues; the driver's
 paths (fused, hybrid, lane refill, the cross-chunk pipeline on its CUDA
@@ -162,39 +164,87 @@ def test_dp_kernels_all_neg_inf_scores(go, ge, cuda):
         _int_equal(got, want, field)
 
 
-@pytest.mark.parametrize("dchunk", [8, 32])
-@pytest.mark.parametrize("case", DP_CASES)
-def test_grid_kernels_match_plain(case, dchunk, cuda):
-    """K1-grid (through ``gotoh_scan``) and K2-grid against the plain scan
-    and traceback; one launch of each per block of ``dchunk`` diagonals."""
+def _hold_grid(case, dchunk, dev, cluster=0):
+    """K1-grid (through ``gotoh_scan``, or ``dp_forward_grid`` with an
+    explicit ``cluster``) and K2-grid against the plain scan and traceback:
+    one launch of each per call, whatever ``dchunk``, which only pads the
+    codes to a multiple of its rows."""
     b, la_max, lb_max, _seed = case
-    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    pssm_t, seq_t, la_t, lb_t = _dp_problem(case, dev)
     skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT))
-    blocks = -(-(la_max + lb_max + 1) // dchunk)
+    num_rows = -(-(la_max + lb_max + 1) // dchunk) * dchunk
 
     before = dict(_build.launches)
-    res_k = gotoh_cuda.gotoh_scan(skewed, la_t, lb_t, GO, GE, dchunk)
-    finals_k = torch.stack([res_k.final_m, res_k.final_h, res_k.final_v])
-    tb_k = gotoh_cuda.dp_traceback_grid(res_k.aux, finals_k, la_t, lb_t, GO,
-                                        GE, seq_t, dchunk)
-    assert _build.launches["gotoh_grid_dp"] == \
-        before["gotoh_grid_dp"] + blocks
-    assert _build.launches["gotoh_grid_tb"] == \
-        before["gotoh_grid_tb"] + blocks
-    res_p = gotoh.gotoh_scan(skewed, la_t, lb_t, GO, GE, la_max)
+    if cluster:
+        dirs_k, finals_k = gotoh_cuda.dp_forward_grid(
+            skewed, la_t, lb_t, GO, GE, dchunk, cluster=cluster)
+    else:
+        res_k = gotoh_cuda.gotoh_scan(skewed, la_t, lb_t, GO, GE, dchunk)
+        dirs_k = res_k.aux
+        finals_k = torch.stack([res_k.final_m, res_k.final_h, res_k.final_v])
+    tb_k = gotoh_cuda.dp_traceback_grid(dirs_k, finals_k, la_t, lb_t, GO, GE,
+                                        seq_t, dchunk)
+    moved = {name: _build.launches[name] - before[name] for name in before}
+    assert moved == dict.fromkeys(before, 0) | {"gotoh_grid_dp": 1,
+                                                "gotoh_grid_tb": 1}
     dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
     tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
     torch.cuda.synchronize()
 
-    for got, want, name in zip(res_k[:3], res_p[:3], ("m", "h", "v")):
-        _int_equal(got, want, f"final_{name}")
-    assert res_k.aux.shape == (blocks * dchunk, b, la_max + 1)
-    valid = _valid_cells(la_t, lb_t, la_max, lb_max, cuda).permute(1, 0, 2)
-    dirs_k = res_k.aux[:la_max + lb_max + 1]
-    _int_equal(torch.where(valid, dirs_k, 0),
-               torch.where(valid, res_p.aux.to(torch.int8), 0), "dirs")
+    _int_equal(finals_k, finals_p, "finals")
+    assert dirs_k.shape == (num_rows, b, la_max + 1)
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, dev)
+    dirs_k = dirs_k[:la_max + lb_max + 1].permute(1, 0, 2)
+    _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
+               "dirs")
     for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
         _int_equal(got, want, field)
+
+
+@pytest.mark.parametrize("dchunk", [8, 32])
+@pytest.mark.parametrize("case", DP_CASES)
+def test_grid_kernels_match_plain(case, dchunk, cuda):
+    """K1-grid and K2-grid against the plain versions; one launch of each
+    per call, whatever ``dchunk``."""
+    _hold_grid(case, dchunk, cuda)
+
+
+def test_grid_kernels_at_16s_bucket(cuda):
+    """K1-grid + K2-grid at the 16S bucket, B=32 1536 x 1536 and the fused
+    path's dchunk 32: 49 strips on four CTAs per pair, and walks of up to
+    3072 steps over [3104, 32, 1537] codes."""
+    _hold_grid((32, 1536, 1536, 19), 32, cuda)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("case", [(2, 1100, 40, 9), (5, 300, 77, 11),
+                                  (3, 45, 700, 21), (6, 64, 64, 25)])
+def test_grid_kernel_cluster_sizes_match_plain(case, cluster, cuda):
+    """K1-grid with 1, 2 and 4 CTAs per pair (at one CTA, 1100 rows are 35
+    strips on 16 warps; at 2 and 4 the rings between strips cross CTAs
+    through distributed shared memory)."""
+    _hold_grid(case, 8, cuda, cluster=cluster)
+
+
+def test_grid_kernel_refuses_a_stalling_schedule(cuda):
+    """K1-grid takes K1's shape limits: where ``dp_forward`` raises (the
+    stalling shape of ``test_dp_kernel_refuses_a_stalling_schedule`` on one
+    CTA per pair), ``dp_forward_grid`` raises before any launch, with no
+    fallback; two CTAs per pair, the fewest that run it, and the wrapper's
+    own cluster (4) are exact."""
+    case = (2, 600, 1800, 31)
+    pssm_t, _seq_t, la_t, lb_t = _dp_problem(case, cuda)
+    skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT))
+    before = dict(_build.launches)
+    with pytest.raises(_build.KernelLaunchError):
+        gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE, cluster=1)
+    with pytest.raises(_build.KernelLaunchError):
+        gotoh_cuda.dp_forward_grid(skewed, la_t, lb_t, GO, GE, 8, cluster=1)
+    assert _build.launches == before
+    assert not gotoh_cuda.ring_safe(600, 1800, 1)
+    assert gotoh_cuda.ring_safe(600, 1800, 2)
+    _hold_grid(case, 8, cuda, cluster=2)
+    _hold_grid(case, 8, cuda)
 
 
 @pytest.mark.parametrize("case", DP_CASES)
