@@ -5,7 +5,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
 
 1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and the port's native
    host libraries (g++) before anything is timed, and print the card, its
-   power limit, the torch version and the build times;
+   power limit, the torch version, the build times and, from
+   ``cuobjdump``, each kernel's registers, local memory and spills;
 2. hold every kernel against its plain PyTorch version on the card, exactly
    (integer outputs, zero tolerance), at the main path's shapes, and time
    both with CUDA events beside the kernel's bound (bytes over 3.35 TB/s or
@@ -13,7 +14,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    K1 + K2 (wavefront DP + traceback) and K1-grid + K2-grid (the same
    kernels over pre-skewed scores and diagonal-major codes, one launch
    each) at B=128 96x96, B=32 320x320 and the 16S chunk's B=32 1536x1536,
-   K-res (both in one CTA, codes in shared memory) at the first two, K1 +
+   K-res (K1's sweep and K2's walk in one CTA per pair, the codes in
+   shared memory) at the first two and at a ragged B=40 333x150, K1 +
    K2 at a ragged non-square B=40 333x700; K1 both in the
    wrapper's clusters of CTAs per pair and at one CTA per pair; K2 as the
    main path runs it, after a K1 that has just written its codes (the
@@ -24,7 +26,10 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    (the edge filter: its sweep, K1's kernel in a prefix mode over 2B lanes,
    and its pack) at the main path's B=128 96x96, B=32 320x320, B=32
    1536x1536 and B=40 333x700, the sweep's prefixes, the pack and the
-   filter's words each against its plain version;
+   filter's words each against its plain version; KB (the wavefront-layout
+   microbenchmark's chain) at the three layouts of
+   ``benchmark/profile_wavefront_layout.py``, reps 1, 2 and 5 and near
+   INT32_MAX, timed at reps 5 beside its bound and at the source's 3600;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
    families (``lara_tpu_torch.workloads``, copies of ``bench.py``'s): tRNA
    (120 pairs of ~72 nt), ~300 nt (28 pairs), 16S (28 pairs of 1530 nt,
@@ -34,7 +39,10 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    another), lane refill (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA
    pairs through 64 lanes), the hybrid backend at ``-m 0`` on tRNA, the
    hybrid at ``-m 12`` on ~300 nt under ``LARA_DP_RESIDENT=1``, and the
-   fused path under ``LARA_DP_GRID=1`` on tRNA.  Every pair must equal the
+   fused path under ``LARA_DP_GRID=1`` on tRNA; and KB's own entry
+   point, ``lara_tpu_torch.benchmark.profile_wavefront_layout.main``, which
+   prints the us per step of each layout by the slope and must launch KB
+   alone.  Every pair must equal the
    port's native C++ baseline under ``workloads.full_depth_ok`` (columns,
    best_lower, best_upper, iterations; on 16S the native pairs run on a
    thread pool, and three of them again alone for the one-thread rate),
@@ -67,7 +75,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    iterations 1-3 and 25.
 
 It then checks that neither JAX nor any module of the JAX package (nor
-``bench``) was loaded, prints a ``{"kernels": [...]}`` line, the
+``bench``, nor the repository's ``benchmark``) was loaded, prints a
+``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -97,8 +106,9 @@ KERNELS = {
                       "lara_tpu/ops/gotoh_pallas.py:41"),
     "gotoh_grid_tb": ("lara_tpu_torch/csrc/gotoh_dp.cu",
                       "lara_tpu/ops/gotoh_pallas.py:145"),
-    # one kernel for both resident TPU kernels (K1-res :468, K2-res :550)
-    "gotoh_resident": ("lara_tpu_torch/csrc/gotoh_resident.cu",
+    # one kernel for both resident TPU kernels (K1-res :468, K2-res :550):
+    # K1's sweep and K2's walk with the codes in shared memory
+    "gotoh_resident": ("lara_tpu_torch/csrc/gotoh_dp.cu",
                        "lara_tpu/ops/gotoh_pallas.py:468"),
     # K4, the edge filter: not Pallas on the TPU but two XLA scans and a
     # pack (edge_filter_skewed_words)
@@ -106,6 +116,9 @@ KERNELS = {
                    "lara_tpu/ops/gotoh.py:337"),
     "edge_pack": ("lara_tpu_torch/csrc/edge_filter.cu",
                   "lara_tpu/ops/gotoh.py:337"),
+    # KB, the wavefront-layout microbenchmark (make_chain's pallas_call :76)
+    "wavefront_chain": ("lara_tpu_torch/csrc/wavefront_chain.cu",
+                        "benchmark/profile_wavefront_layout.py:47"),
 }
 #: K4's kernels, launched once per chunk on every path
 K4 = ("edge_sweep", "edge_pack")
@@ -174,9 +187,10 @@ def _dp_bounds(la, lb, la_max, tb):
     k2_bytes = 32.0 * (steps + float(matches.sum())) \
         + 4.0 * len(la) * (la_max + 7)
     k2 = _bound(k2_bytes, 8.0 * steps)
-    # K-res keeps the codes on chip: K1's score reads and K2's traffic
-    res = _bound(4.0 * float((la * lb).sum()) + k2_bytes,
-                 DP_OPS_PER_CELL * cells)
+    # K-res keeps the codes on chip, and its walk reads them from shared
+    # memory: the scores once, a seq score per match, the partner rows
+    res = _bound(4.0 * float((la * lb).sum()) + 32.0 * float(matches.sum())
+                 + 4.0 * len(la) * (la_max + 7), DP_OPS_PER_CELL * cells)
     return {"gotoh_dp": k1, "gotoh_tb": k2, "gotoh_grid_dp": k1,
             "gotoh_grid_tb": k2, "gotoh_resident": res}
 
@@ -207,8 +221,9 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, grid=True,
                                  for x in (pssm, seq, la, lb))
     dchunk = gotoh_plan.fused_dchunk(la_max, lb_max)
     skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT)) if grid else None
-    if resident and gotoh_plan.resident_bytes(la_max, lb_max) \
-            > gotoh_cuda.smem_optin(dev):
+    warps = gotoh_plan.resident_warps(la_max, lb_max,
+                                      gotoh_cuda.smem_optin(dev))
+    if resident and not warps:
         raise AssertionError(f"{la_max}x{lb_max} does not fit K-res")
 
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge)
@@ -295,7 +310,8 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, grid=True,
               f"ms ({bound_by})")
     print(f"  {'':16s} {shape:24s} K1 {clusters} CTA(s) per pair "
           f"{k1_ms:.4f} ms, 1 CTA per pair {k1_one:.4f} ms; K1 + K2 "
-          f"{k1_ms + k2_ms:.4f} ms; K2 alone on warm codes {k2_alone:.4f} ms")
+          f"{k1_ms + k2_ms:.4f} ms; K2 alone on warm codes {k2_alone:.4f} ms"
+          + (f"; K-res on {warps} warps per pair" if resident else ""))
 
 
 def _forward_then_walk(forward, walk):
@@ -306,6 +322,89 @@ def _forward_then_walk(forward, walk):
     forward_ms = _time_ms(forward, 50)
     pair_ms = _time_ms(lambda: walk(*forward()), 50)
     return forward_ms, pair_ms - forward_ms
+
+
+#: KB's integer operations per element and step: the roll's where (two),
+#: max and add, the h update's two adds and max, the where on t % cols
+#: (two); the carry's where adds two
+KB_OPS = 9
+def _kb_phase(dev, stats):
+    """KB against its plain version at the three layouts of
+    ``benchmark/profile_wavefront_layout.py`` and reps 1, 2 and 5 on random
+    inputs from a seed, and at the packed layout near INT32_MAX (the adds
+    wrap), exactly; then the kernel and the plain version timed at reps 5,
+    beside the bound (operations over 67 T/s), and the kernel alone at the
+    source's hi (3600 blocks)."""
+    import torch
+
+    from lara_tpu_torch.benchmark import profile_wavefront_layout as kb
+
+    rng = np.random.default_rng(11)
+    for label, rows, cols, carry in kb.LAYOUTS:
+        cases = [(f"reps {reps}", reps, rng.integers(-1000, 1000,
+                                                     (rows, cols)))
+                 for reps in (1, 2, 5)]
+        if carry:
+            cases.append(("reps 2 near INT32_MAX", 2,
+                          2**31 - 1 - rng.integers(0, 300, (rows, cols))))
+        err = 0
+        for _what, reps, x in cases:
+            x_t = torch.from_numpy(x.astype(np.int32)).to(dev)
+            got = kb.chain(x_t, reps, carry)
+            want = kb.chain_plain(x_t, reps, carry)
+            torch.cuda.synchronize()
+            err = max(err, _max_abs_err(got, want))
+        if err:
+            raise AssertionError(f"KB disagrees with the plain version at "
+                                 f"{label}: {err}")
+        x_t = torch.from_numpy(cases[0][2].astype(np.int32)).to(dev)
+        ms = _time_ms(lambda: kb.chain(x_t, 5, carry), 20)
+        plain_ms = _time_ms(lambda: kb.chain_plain(x_t, 5, carry), 2)
+        hi_ms = _time_ms(lambda: kb.chain(x_t, 3600, carry), 3)
+        steps = 5 * kb.BLOCK
+        ops = float(steps) * rows * cols * (KB_OPS + 2 * carry) \
+            + rows * cols
+        bound_ms, bound_by = _bound(8.0 * rows * cols, ops)
+        shape = f"[{rows},{cols}]" + (" carry" if carry else "")
+        stats["wavefront_chain"].append(
+            (shape, err, ms, plain_ms, bound_ms, bound_by,
+             {"reps": 5, "ms_at_hi": round(hi_ms, 6)}))
+        print(f"  {'wavefront_chain':16s} {shape:24s} max_abs_err {err} "
+              f"(reps 1, 2, 5{', 2 near INT32_MAX' if carry else ''})  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms at reps 5  "
+              f"bound {bound_ms:.6f} ms ({bound_by}); kernel at reps 3600 "
+              f"{hi_ms:.4f} ms")
+
+
+def _kb_path():
+    """KB's own entry point, ``profile_wavefront_layout.main`` with the
+    source's defaults (lo 400, hi 3600, 3 calls per point): the launch
+    counts are set to 0 just before it and read just after it, and only KB
+    may have launched.  Then the SM clock under a load like KB's, one CTA
+    on one SM: ``torch.cuda._sleep`` spins a known count of SM cycles, timed
+    with CUDA events (least of 5), and each layout's step in those cycles.
+    Returns (launch counts, {label: s per step})."""
+    import torch
+
+    from lara_tpu_torch import _build
+    from lara_tpu_torch.benchmark import profile_wavefront_layout as kb
+
+    _build.reset_launches()
+    per_step = kb.main([])
+    launches = dict(_build.launches)
+    launched = {k for k, n in launches.items() if n}
+    if launched != {"wavefront_chain"}:
+        raise AssertionError(f"the KB run launched {sorted(launched)}")
+    print(f"    launches: {launches}")
+    cycles = 20_000_000
+    spin_ms = min(_time_ms(lambda: torch.cuda._sleep(cycles), 1)
+                  for _ in range(5))
+    mhz = cycles / (spin_ms * 1e3)
+    print(f"    SM clock, one CTA spinning {cycles} cycles: {mhz:.1f} MHz; "
+          "a step in cycles at that clock: " + ", ".join(
+              f"{label} {per * mhz * 1e6:.1f}"
+              for label, per in per_step.items()))
+    return launches, per_step
 
 
 def _edge_phase(b, la_max, lb_max, seed, dev, stats):
@@ -1076,6 +1175,8 @@ def main() -> int:
     _dp_phase(32, 1536, 1536, 3, dev, stats, resident=False)
     # ragged and non-square: la_max not a multiple of 32, 32 < B < 132
     _dp_phase(40, 333, 700, 4, dev, stats, grid=False, resident=False)
+    # the same, narrow enough for K-res (11 warps per pair)
+    _dp_phase(40, 333, 150, 9, dev, stats, grid=False)
     # K3 first at the main path's shapes (the tRNA and ~300 nt chunks have
     # D=1024 dual entries, so W=512 queue columns, the 16S chunk D=3072, so
     # W=1536; S=LA line slots), then the fuzz widths at every lookahead
@@ -1092,6 +1193,8 @@ def main() -> int:
     _edge_phase(32, 320, 320, 6, dev, stats)
     k4_16s = _edge_phase(32, 1536, 1536, 7, dev, stats)
     _edge_phase(40, 333, 700, 8, dev, stats)
+    # KB at the three layouts of benchmark/profile_wavefront_layout.py
+    _kb_phase(dev, stats)
 
     families = [
         ("trna-72nt", make_family(n=16)),
@@ -1150,6 +1253,10 @@ def main() -> int:
         _exact_launches(f"{trna[0]} LARA_DP_GRID=1", grid_run[0],
                         grid_run[3].results, 1, kernels=GRID_ITERATION)
         count(grid_run[0])
+    print("KB's entry point, python -m "
+          "lara_tpu_torch.benchmark.profile_wavefront_layout:")
+    kb_run, kb_per_step = _kb_path()
+    count(kb_run)
     print(f"  kernel launches, each from the runs meant to launch it: "
           f"{launches}")
     print("where one chunk's solve spends its time:")
@@ -1158,8 +1265,8 @@ def main() -> int:
     _profile_phase(*long16, dev, stats)
     _profile_phase(*trna, dev, stats, env={"LARA_DP_GRID": "1"})
     foreign = sorted(m for m in sys.modules
-                     if m in ("jax", "lara_tpu", "bench")
-                     or m.startswith(("jax.", "lara_tpu.")))
+                     if m in ("jax", "lara_tpu", "bench", "benchmark")
+                     or m.startswith(("jax.", "lara_tpu.", "benchmark.")))
     if foreign:
         raise AssertionError(f"the port loaded {foreign[:5]}")
 
@@ -1175,10 +1282,13 @@ def main() -> int:
             "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
             "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
             # no PyTorch call computes an affine-gap DP, its traceback, the
-            # greedy lookahead matching or the edge filter
+            # greedy lookahead matching, the edge filter or KB's chain
             "library_ms": None, "shape": shape}
-        for more in extra:  # K3: the rounds of the longest lane
+        for more in extra:  # K3: the rounds of the longest lane; KB: reps
             entry.update(more)
+        if name == "wavefront_chain":
+            entry["us_per_step"] = {label: round(per * 1e6, 6)
+                                    for label, per in kb_per_step.items()}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: kernel launches per kernel since the last :func:`reset_launches`
 launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
             "gotoh_grid_dp": 0, "gotoh_grid_tb": 0, "gotoh_resident": 0,
-            "edge_sweep": 0, "edge_pack": 0}
+            "edge_sweep": 0, "edge_pack": 0, "wavefront_chain": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -156,7 +156,8 @@ def library() -> ctypes.CDLL:
             ptr]
         lib.lara_gotoh_resident.restype = i32
         lib.lara_gotoh_resident.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr,
+            ptr]
         lib.lara_edge_sweep.restype = i32
         lib.lara_edge_sweep.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr,
@@ -164,6 +165,8 @@ def library() -> ctypes.CDLL:
         lib.lara_edge_pack.restype = i32
         lib.lara_edge_pack.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
+        lib.lara_wavefront_chain.restype = i32
+        lib.lara_wavefront_chain.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
         lib.lara_smem_optin.restype = i32
         lib.lara_smem_optin.argtypes = [i32, ctypes.POINTER(i32)]
         lib.lara_cuda_error_string.restype = ctypes.c_char_p

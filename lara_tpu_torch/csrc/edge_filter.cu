@@ -26,13 +26,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gotoh_common.cuh"
-
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kAlpha = 5;         // the Rna5 alphabet
 constexpr int kPackWarps = 8;     // warps per CTA
+
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
 
 // Grid: (ceil((K + 1) / (32 * kPackWarps)), pairs).  prefix is the sweep's
 // [2 * pairs, D, W], finals its [3, 2 * pairs]; out is [pairs, K + 1].
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(kPackWarps * 32)
   const int lb = lb_arr[p];
   const int opt = max(max(finals[p], finals[2 * pairs + p]),
                       finals[4 * pairs + p]);
-  const int cut = lara::wadd(opt, -subopt);
+  const int cut = wadd(opt, -subopt);
   const size_t lane_cells = static_cast<size_t>(D) * W;
   const int* fwd = prefix + static_cast<size_t>(p) * lane_cells;
   const int* bwd = prefix + static_cast<size_t>(pairs + p) * lane_cells;
@@ -76,13 +78,13 @@ __global__ void __launch_bounds__(kPackWarps * 32)
     if (edge) {
       ca = sa[a];
       cb = sb[b];
-      total = lara::wadd(
+      total = wadd(
           fwd[static_cast<size_t>(d) * W + a],
           bwd[static_cast<size_t>(la + lb - 2 - d) * W + la - 1 - a]);
     }
     const int sc = __shfl_sync(kFull, sub_entry, kAlpha * ca + cb);
     const unsigned bits =
-        __ballot_sync(kFull, edge && lara::wadd(total, sc) >= cut);
+        __ballot_sync(kFull, edge && wadd(total, sc) >= cut);
     if (lane == w) mine = static_cast<int>(bits);
     // the next word: 32 flat indices on
     a += 32;

@@ -7,9 +7,11 @@
 // gotoh_pallas.py:41 (_make_kernel, pallas_call :654 and :876) and K2-grid
 // (dp_walk_kernel over the grid layout) replaces :145
 // (_make_traceback_kernel, pallas_call :984); LARA_DP_GRID=1 selects them.
-// The resident layout has its own kernel in gotoh_resident.cu.  The plain
-// versions are lara_tpu_torch/ops/gotoh.py::dp_forward, ::gotoh_scan and
-// ::dp_traceback.
+// K-res (dp_wave_kernel<false, false, true>) replaces both
+// gotoh_pallas.py:468 (_make_resident_kernel, K1-res) and :550
+// (_make_tb_resident_kernel, K2-res); LARA_DP_RESIDENT=1 selects it where
+// the pair fits (lara_tpu_torch/ops/gotoh_plan.py).  The plain versions are
+// lara_tpu_torch/ops/gotoh.py::dp_forward, ::gotoh_scan and ::dp_traceback.
 //
 // The two layouts: K1 reads a score grid [B, LA, LB] and writes its codes
 // lane-major, [B, D, W]; K1-grid reads the pre-skewed scores [D, B, W] (the
@@ -87,6 +89,26 @@
 // seq[b, i, partner[i]] over the matched rows (uint32 adds commute).
 // K2-grid is the same kernel over the diagonal-major codes: a lane starts
 // at byte b*W and a diagonal is B*W bytes on, where K2 has b*D*W and W.
+//
+// K-res is K1 and K2 in one launch with the codes in shared memory, so that
+// no code byte touches device memory: only partner [B, la_max] and scalars
+// [4, B] (upper, gap, n_lines, seq) leave the kernel, as on the TPU, whose
+// resident kernels keep every diagonal in VMEM.  What bounds it: K1's chain
+// and issue rate, then K2's walk, on one CTA per pair, and shared memory.
+// The first port ran a diagonal per block barrier with the codes
+// diagonal-major (D x W bytes, 217 KB at 320 x 320: one CTA per SM and a
+// thread per cell), 2.2-2.7x this design's time on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md).  The design: K1's sweep on
+// one CTA of nw warps (strips taken round-robin, as many warps as the
+// codes leave room for, at most one per strip), which stores its codes
+// into shared memory instead of dirs, row-major: lane t packs the codes of
+// steps 4q .. 4q+3 of its row i into one 32-bit word and stores it as word
+// q of row i (byte j + (i & 31) holds cell (i, j)).  The pitch is an odd
+// number of words, so a warp step's 32 stores fall in 32 banks; the whole
+// store is (la_max + 1) * pitch words, 114,276 bytes at 320 x 320 where the
+// diagonal-major codes took 205,761.  After a block barrier, lane 0 of warp
+// 0 walks as K2 does, each step a byte of shared memory, and the warp sums
+// the seq scores over the matched rows off the walk's chain.
 //
 // K4's sweep is K1 in a prefix mode (dp_wave_kernel<true, false>): the same
 // strips, rings and step, but each cell stores the int32 max(M, H, V) where
@@ -284,9 +306,80 @@ __device__ __forceinline__ int wave_cell(int i, int j, int sc, int dm, int dh,
   return mh | (vdir << 4);
 }
 
+// The end of a walk, by its warp: the seq-score sum of pair b over the
+// matched rows of its partner row (off the walk's chain: uint32 adds
+// commute), then lane 0 writes the pair's scalars [4, batch] (upper, gap,
+// n_lines, seq).
+__device__ __forceinline__ void walk_scalars(const int* row,
+                                             const int* __restrict__ seq,
+                                             int b, int batch, int la_max,
+                                             int lb_max, int upper, int gap,
+                                             int cnt,
+                                             int* __restrict__ scalars) {
+  const int lane = threadIdx.x & 31;
+  const int* seq_of = seq + static_cast<size_t>(b) * la_max * lb_max;
+  uint32_t sum = 0;
+  for (int a = lane; a < la_max; a += 32) {
+    const int p = row[a];
+    if (p >= 0) sum += static_cast<uint32_t>(seq_of[a * lb_max + p]);
+  }
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+  if (lane == 0) {
+    scalars[b] = upper;
+    scalars[batch + b] = gap;
+    scalars[2 * batch + b] = cnt;
+    scalars[3 * batch + b] = static_cast<int>(sum);
+  }
+}
+
+// K-res's traceback, by one warp once the sweep is done: lane 0 walks from
+// (la, lb) as K2 does, reading the code of cell (i, j) from byte
+// j + (i & 31) of row i of codes (4 * pitch bytes a row), and writes the
+// partner row of pair b; then walk_scalars.
+__device__ __forceinline__ void resident_walk(
+    const uint32_t* codes, int pitch, const int* fin, int la, int lb, int b,
+    int batch, int la_max, int lb_max, int go, int ge,
+    const int* __restrict__ seq, int* __restrict__ partner,
+    int* __restrict__ scalars) {
+  const int lane = threadIdx.x & 31;
+  int* row = partner + static_cast<size_t>(b) * la_max;
+  for (int a = lane; a < la_max; a += 32) row[a] = -1;
+  __syncwarp();
+  const int fm = fin[0], fh = fin[1], fv = fin[2];
+  const int upper = max(max(fm, fh), fv);
+  int gap = 0, cnt = 0;
+  if (lane == 0) {
+    const uint8_t* cb = reinterpret_cast<const uint8_t*>(codes);
+    const int row_bytes = 4 * pitch;
+    int state = fm == upper ? kMat : (fh == upper ? kHor : kVer);
+    int i = la, j = lb;
+    while (i > 0 || j > 0) {
+      if (i == 0) {
+        state = kHor;
+      } else if (j == 0) {
+        state = kVer;
+      }
+      const int code = cb[i * row_bytes + j + (i & 31)];
+      const int pred = (code >> (2 * state)) & 3;
+      if (state == kMat) {
+        row[i - 1] = j - 1;
+        ++cnt;
+      } else {
+        gap = wadd(gap, pred == state ? ge : go);
+      }
+      if (state != kHor) --i;
+      if (state != kVer) --j;
+      state = pred;
+    }
+  }
+  __syncwarp();
+  walk_scalars(row, seq, b, batch, la_max, lb_max, upper, gap, cnt, scalars);
+}
+
 // Grid: batch * C CTAs in clusters of C (one cluster per pair), nw warps
 // each.  Shared memory: nw * kWarpInts ints, then cons[nw]: the cells
-// consumed from the ring that warp w feeds (written by its consumer).
+// consumed from the ring that warp w feeds (written by its consumer); K-res
+// then fin[3] and, from the next 16-byte boundary, its codes.
 // K1 (kPrefix and kSkewed false) reads the score grid pssm
 // [batch, la_max, lb_max] and the border codes and writes int8 codes to out
 // [batch, D, W]; K1-grid (kSkewed) reads the pre-skewed scores from pssm
@@ -294,8 +387,12 @@ __device__ __forceinline__ int wave_cell(int i, int j, int sc, int dm, int dh,
 // [Dp, batch, W]; K4's sweep (kPrefix) reads seq_a [batch/2, la_max], seq_b
 // [batch/2, lb_max] and submat [5, 5] (lane b < batch/2 forward, lane
 // batch/2 + b the reversed sequences of pair b, with the la and lb of pair
-// b) and writes int32 prefixes to out [batch, D, W].
-template <bool kPrefix, bool kSkewed>
+// b) and writes int32 prefixes to out [batch, D, W].  K-res (kResident,
+// one CTA per pair) reads K1's score grid and the seq scores seq
+// [batch, la_max, lb_max] and writes the partner rows to out
+// [batch, la_max] and the scalars to finals [4, batch]; its codes take
+// (la_max + 1) * pitch words.
+template <bool kPrefix, bool kSkewed, bool kResident = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     dp_wave_kernel(const int* __restrict__ pssm, const int* __restrict__ seq_a,
                    const int* __restrict__ seq_b,
@@ -304,8 +401,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                    const int* __restrict__ lb_arr,
                    const int8_t* __restrict__ border, int la_max, int lb_max,
                    int go, int ge, int nw, int batch, int vec16,
-                   void* __restrict__ out, int* __restrict__ finals) {
+                   void* __restrict__ out, int* __restrict__ finals,
+                   const int* __restrict__ seq, int pitch) {
   static_assert(!(kPrefix && kSkewed), "K4's sweep has no skewed layout");
+  static_assert(!(kResident && (kPrefix || kSkewed)),
+                "K-res sweeps K1's score grid");
   using Cell = std::conditional_t<kPrefix, int, int8_t>;
   extern __shared__ __align__(16) int smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -318,6 +418,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   unsigned long long* ring = reinterpret_cast<unsigned long long*>(
       smem + warp * kWarpInts + 32 * kTileCols);
   int* cons = smem + nw * kWarpInts;
+  int* fin = cons + nw;  // K-res: the terminal M, H, V
+  uint32_t* codes = reinterpret_cast<uint32_t*>(
+      smem + ((nw * (kWarpInts + 1) + 3 + 3) & ~3));
   for (int x = lane; x < 3 * kRing; x += 32) ring[x] = 0;  // no tag is 0
   if (threadIdx.x < nw) cons[threadIdx.x] = 0;
   cluster.sync();
@@ -345,9 +448,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       kPrefix ? seq_b + static_cast<size_t>(pair) * lb_max : seq_b;
   // K4: lane x < 25 holds submat[x], read by shuffles
   const int sub_entry = kPrefix && lane < kAlpha * kAlpha ? submat[lane] : 0;
-  Cell* out_b = static_cast<Cell*>(out) +
-                (kSkewed ? static_cast<size_t>(b) * W
-                         : static_cast<size_t>(b) * (la_max + lb_max + 1) * W);
+  // K-res stores its codes in shared memory: out is its partner rows
+  Cell* out_b = kResident ? nullptr
+                : static_cast<Cell*>(out) +
+                      (kSkewed ? static_cast<size_t>(b) * W
+                               : static_cast<size_t>(b) * (la_max + lb_max + 1) *
+                                     W);
 
   for (int k = rank + C * warp; k < nstrips; k += P) {
     const int base = 32 * k;
@@ -433,6 +539,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     int ci = kTileCols - 1 - lane;                 // (j-1) mod 96
     const int bcode = !kPrefix && i <= la ? border[i] : 0;
     const bool row_valid = i <= la;
+    // K-res: the codes of steps 4q .. 4q+3 (cells j = 4q - lane ..), stored
+    // as word q of row i
+    uint32_t word = 0;
+    uint32_t* crow = codes + static_cast<size_t>(row_valid ? i : 0) * pitch;
     // code (K4: prefix) of cell (i, j) at out_b[(i + j) * W + i]; j = s - lane
     Cell* outp = out_b + static_cast<size_t>(base) * dstride + i;
     int in_slot = e_in % kRing, out_slot = e_out % kRing;
@@ -492,23 +602,38 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           km[u] = cm;
           kh[u] = ch;
           kv[u] = cv;
-          // past the first 32 steps j >= 1
-          const bool store = kEdge ? row_valid && static_cast<unsigned>(j) <=
-                                                      static_cast<unsigned>(lb)
-                                   : j <= j_hi;
-          if (store) {
-            if constexpr (kPrefix) {
-              *outp = max(max(cm, ch), cv);
-            } else {
-              *outp = static_cast<int8_t>(code);
+          if constexpr (kResident) {
+            word |= static_cast<uint32_t>(code) << (8 * (u & 3));
+            if ((u & 3) == 3) {
+              // cells j - 3 .. j of row i: store unless none is inside
+              if (row_valid && j >= 0 && j - 3 <= lb) crow[s >> 2] = word;
+              word = 0;
             }
+            if (s == fin_s) {
+              fin[0] = cm;
+              fin[1] = ch;
+              fin[2] = cv;
+            }
+          } else {
+            // past the first 32 steps j >= 1
+            const bool store =
+                kEdge ? row_valid &&
+                            static_cast<unsigned>(j) <= static_cast<unsigned>(lb)
+                      : j <= j_hi;
+            if (store) {
+              if constexpr (kPrefix) {
+                *outp = max(max(cm, ch), cv);
+              } else {
+                *outp = static_cast<int8_t>(code);
+              }
+            }
+            if (s == fin_s) {
+              finals[b] = cm;
+              finals[batch + b] = ch;
+              finals[2 * batch + b] = cv;
+            }
+            outp += dstride;
           }
-          if (s == fin_s) {
-            finals[b] = cm;
-            finals[batch + b] = ch;
-            finals[2 * batch + b] = cv;
-          }
-          outp += dstride;
         }
       };
       // only the first 32 steps of a strip meet column 0, only strip 0
@@ -549,6 +674,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   // no CTA may leave while a neighbour still writes into its shared memory
   cluster.sync();
+  if constexpr (kResident) {
+    if (warp == 0) resident_walk(codes, pitch, fin, la, lb, b, batch, la_max,
+                                 lb_max, go, ge, seq,
+                                 static_cast<int*>(out), finals);
+  }
 }
 
 // One warp per pair.  Shared memory: two windows of kWinRows x kWinBytes.
@@ -655,51 +785,50 @@ __global__ void __launch_bounds__(32)
   }
   cp_async_wait<0>();
   __syncwarp();
-
-  // seq-score sum over the matched rows, off the walk's chain
-  const int* seq_of = seq + static_cast<size_t>(b) * la_max * lb_max;
-  uint32_t sum = 0;
-  for (int a = lane; a < la_max; a += 32) {
-    const int p = row[a];
-    if (p >= 0) sum += static_cast<uint32_t>(seq_of[a * lb_max + p]);
-  }
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
-  if (lane == 0) {
-    scalars[b] = upper;
-    scalars[batch + b] = gap;
-    scalars[2 * batch + b] = cnt;
-    scalars[3 * batch + b] = static_cast<int>(sum);
-  }
+  walk_scalars(row, seq, b, batch, la_max, lb_max, upper, gap, cnt, scalars);
 }
 
-// Whether the strip schedule always finishes (gotoh_cuda.ring_safe, which
-// picks the cluster size, says why): with more strips than warps per pair,
-// a row must stay short of the point where the last warp's strip waits on
-// one that the first warp has not started.
-bool ring_safe(int la_max, int lb_max, int cluster) {
+// Whether the strip schedule of p warps per pair always finishes
+// (gotoh_plan.schedule_safe says why): with more strips than warps, a row
+// must stay short of the point where the last warp's strip waits on one
+// that the first warp has not started.
+bool ring_safe(int la_max, int lb_max, int p) {
   const int strips = (la_max + 32) / 32;
-  const int p =
-      cluster * std::min(kMaxWarps, (strips + cluster - 1) / cluster);
   return strips <= p || p * (kRing + 28 - kSub) >= lb_max + 32;
 }
 
+// K-res's codes: words per row, the least odd number past the last word a
+// lane stores ((lb_max + 31) / 4), and the shared memory of a CTA of nw
+// warps.  Keep in step with gotoh_plan.resident_pitch and resident_bytes.
+int resident_pitch(int lb_max) { return ((lb_max + 31) / 4 + 1) | 1; }
+
+size_t resident_bytes(int la_max, int lb_max, int nw) {
+  const size_t head = (static_cast<size_t>(nw) * (kWarpInts + 1) + 3 + 3) & ~3;
+  return (head + static_cast<size_t>(la_max + 1) * resident_pitch(lb_max)) *
+         sizeof(int);
+}
+
 // K1, K1-grid (kSkewed) or K4's sweep (kPrefix) over ``batch`` lanes in
-// clusters of ``cluster`` CTAs per lane.
-template <bool kPrefix, bool kSkewed>
+// clusters of ``cluster`` CTAs per lane, min(16, strips / cluster) warps
+// each; K-res (kResident) on one CTA of nw warps per pair.
+template <bool kPrefix, bool kSkewed, bool kResident = false>
 int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
                 const int* submat, const int* la, const int* lb,
                 const int8_t* border, int batch, int la_max, int lb_max,
                 int go, int ge, int cluster, int vec16, void* out,
-                int* finals, void* stream) {
-  if (cluster < 1 || cluster > 8 || !ring_safe(la_max, lb_max, cluster))
-    return static_cast<int>(cudaErrorInvalidValue);
+                int* finals, void* stream, const int* seq = nullptr,
+                int nw = 0) {
   const int strips = (la_max + 32) / 32;
-  const int nw = std::min(kMaxWarps, (strips + cluster - 1) / cluster);
+  if (!kResident) nw = std::min(kMaxWarps, (strips + cluster - 1) / cluster);
+  if (cluster < 1 || cluster > 8 || (kResident && cluster != 1) || nw < 1 ||
+      nw > kMaxWarps || !ring_safe(la_max, lb_max, cluster * nw))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
-      (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
+      kResident ? resident_bytes(la_max, lb_max, nw)
+                : (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      dp_wave_kernel<kPrefix, kSkewed>,
+      dp_wave_kernel<kPrefix, kSkewed, kResident>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -715,9 +844,10 @@ int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel<kPrefix, kSkewed>, pssm,
-                           seq_a, seq_b, submat, la, lb, border, la_max,
-                           lb_max, go, ge, nw, batch, vec16, out, finals);
+  err = cudaLaunchKernelEx(&cfg, dp_wave_kernel<kPrefix, kSkewed, kResident>,
+                           pssm, seq_a, seq_b, submat, la, lb, border, la_max,
+                           lb_max, go, ge, nw, batch, vec16, out, finals, seq,
+                           resident_pitch(lb_max));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -728,6 +858,12 @@ extern "C" {
 
 const char* lara_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The card's opt-in shared memory per block, in bytes.
+int lara_smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }
 
 int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,
@@ -750,6 +886,21 @@ int lara_gotoh_grid_dp(const int* skewed, const int* la, const int* lb,
   return launch_wave<false, true>(skewed, nullptr, nullptr, nullptr, la, lb,
                                   border, batch, width - 1, num_diag - width,
                                   go, ge, cluster, 0, dirs, finals, stream);
+}
+
+// K-res: the forward sweep of a [batch, la_max, lb_max] score grid and its
+// traceback in one CTA of nw warps per pair (gotoh_plan.resident_warps);
+// partner [batch, la_max] and scalars [4, batch] out, seq [batch, la_max,
+// lb_max] the seq scores.
+int lara_gotoh_resident(const int* pssm, const int* la, const int* lb,
+                        const int8_t* border, const int* seq, int batch,
+                        int la_max, int lb_max, int go, int ge, int nw,
+                        int* partner, int* scalars, void* stream) {
+  const int vec16 = (lb_max % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(pssm) % 16 == 0);
+  return launch_wave<false, false, true>(
+      pssm, nullptr, nullptr, nullptr, la, lb, border, batch, la_max, lb_max,
+      go, ge, 1, vec16, partner, scalars, stream, seq, nw);
 }
 
 // K4's sweep over 2 * pairs lanes: prefix [2 * pairs, D, W] int32 (written

@@ -11,8 +11,9 @@ matched cells, plus the ordered line list with ``emit_lines=True``.  A plan
 * ``LARA_DP_GRID=1``: K1-grid (:func:`dp_forward_grid`, also behind
   :func:`gotoh_scan`) + K2-grid (:func:`dp_traceback_grid`), K1's and K2's
   kernels over the grid variant's layouts, ``csrc/gotoh_dp.cu``;
-* ``LARA_DP_RESIDENT=1``: K-res (:func:`align_resident`),
-  ``csrc/gotoh_resident.cu``.
+* ``LARA_DP_RESIDENT=1``: K-res (:func:`align_resident`), K1's sweep and
+  K2's walk in one launch with the codes in shared memory,
+  ``csrc/gotoh_dp.cu``.
 
 Once per chunk, before any iteration, the edge filter
 (:func:`edge_filter_skewed_words`) runs K4: its sweep (:func:`edge_sweep`,
@@ -83,13 +84,6 @@ def _border_on(go: int, ge: int, width: int, device: torch.device):
     return torch.from_numpy(border_codes(go, ge, width)).to(device)
 
 
-#: K1's constants (``csrc/gotoh_dp.cu``): warps per CTA at most, cells in
-#: a ring between strips, steps per block, and the slots of a lane's score
-#: ring (three chunks of 32)
-K1_MAX_WARPS = 16
-K1_RING = 88
-K1_SUB = 8
-K1_TILE_COLS = 96
 #: K2's constants: the window's diagonals and bytes per diagonal (the 16-byte
 #: blocks that hold 64 offsets), and the steps walked per window
 K2_WIN_ROWS = 128
@@ -99,16 +93,12 @@ K2_SEG = 32
 
 def ring_safe(la_max: int, lb_max: int, cluster: int) -> bool:
     """Whether K1's strip schedule always finishes at this shape on
-    ``cluster`` CTAs per pair.  A warp takes strips k, k + P, ... (P warps
-    per pair), and a strip waits for room in its consumer's ring; with more
-    strips than warps, the last warp's strip waits on a strip that the first
-    warp has not started yet, and the chain closes once a row is longer
-    than about P * (ring + 28 - steps per block).  The launcher refuses
-    what this refuses (``lara_gotoh_dp``), with a margin under the point
-    where a model of the schedule stalls (``tests/test_torch_gotoh.py``)."""
+    ``cluster`` CTAs per pair, each of min(16, strips / cluster) warps
+    (:func:`lara_tpu_torch.ops.gotoh_plan.schedule_safe`).  The launcher
+    refuses what this refuses (``lara_gotoh_dp``)."""
     strips = (la_max + 32) // 32
-    p = cluster * min(K1_MAX_WARPS, -(-strips // cluster))
-    return strips <= p or p * (K1_RING + 28 - K1_SUB) >= lb_max + 32
+    return gotoh_plan.schedule_safe(
+        la_max, lb_max, cluster * min(gotoh_plan.K1_MAX_WARPS, -(-strips // cluster)))
 
 
 def cluster_size(b: int, la_max: int, lb_max: int,
@@ -268,8 +258,9 @@ def dp_traceback_grid(dirs: torch.Tensor, finals: torch.Tensor,
 def align_resident(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
                    go: int, ge: int, seq_score: torch.Tensor) -> Traceback:
     """Forward sweep and traceback of a [B, LA, LB] int32 score grid in one
-    CTA per pair, the codes in shared memory: K-res on the card.  The
-    caller's plan has checked that the pair fits."""
+    CTA per pair, the codes in shared memory: K-res on the card, on
+    :func:`lara_tpu_torch.ops.gotoh_plan.resident_warps` warps per pair
+    (raises where the pair does not fit; the caller's plan has checked)."""
     if not pssm.is_cuda:
         dirs, finals = gotoh.dp_forward(pssm, la, lb, go, ge)
         return gotoh.dp_traceback(dirs, finals, la, lb, go, ge, seq_score)
@@ -278,12 +269,16 @@ def align_resident(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
     _build.require(pssm, "pssm", I32, (b, la_max, lb_max), dev)
     _require_lanes(la, lb, b, dev)
     _build.require(seq_score, "seq_score", I32, (b, la_max, lb_max), dev)
+    warps = gotoh_plan.resident_warps(la_max, lb_max, smem_optin(dev))
+    if not warps:
+        raise ValueError(f"K-res does not fit {la_max}x{lb_max} on {dev}")
+    border = _border_on(int(go), int(ge), la_max + 1, dev)
     partner = torch.empty((b, la_max), dtype=I32, device=dev)
     scalars = torch.empty((4, b), dtype=I32, device=dev)
     rc = _build.library().lara_gotoh_resident(
-        pssm.data_ptr(), la.data_ptr(), lb.data_ptr(), seq_score.data_ptr(),
-        b, la_max, lb_max, int(go), int(ge), partner.data_ptr(),
-        scalars.data_ptr(), _build.stream_of(pssm))
+        pssm.data_ptr(), la.data_ptr(), lb.data_ptr(), border.data_ptr(),
+        seq_score.data_ptr(), b, la_max, lb_max, int(go), int(ge), warps,
+        partner.data_ptr(), scalars.data_ptr(), _build.stream_of(pssm))
     _build.check(rc, "gotoh_resident")
     _build.count("gotoh_resident")
     return _traceback_of(partner, scalars)

@@ -2,8 +2,10 @@
 
 K1 + K2, K1-grid + K2-grid (K1's and K2's kernels over the grid
 variant's layouts), K-res and K4's sweep and pack (the edge filter;
-``lara_tpu_torch.ops.gotoh_cuda``)
-and K3 (``lara_tpu_torch.solver.matching_cuda``) against the plain versions
+``lara_tpu_torch.ops.gotoh_cuda``), K3
+(``lara_tpu_torch.solver.matching_cuda``) and KB, the wavefront-layout
+microbenchmark (``lara_tpu_torch.benchmark.profile_wavefront_layout``),
+against the plain versions
 on the same CUDA tensors, with zero tolerance (every output is an
 integer), K1 + K2 and K1-grid + K2-grid at the 16S bucket's 1536 x 1536
 included, K3 at ragged
@@ -247,18 +249,18 @@ def test_grid_kernel_refuses_a_stalling_schedule(cuda):
     _hold_grid(case, 8, cuda)
 
 
-@pytest.mark.parametrize("case", DP_CASES)
+@pytest.mark.parametrize("case", DP_CASES + [(2, 600, 600, 27)])
 def test_resident_plan_and_kernel_match_plain(case, cuda, monkeypatch):
     """Under LARA_DP_RESIDENT=1 the plan takes K-res where the pair fits
     the card's opt-in shared memory and K1 + K2 where it does not (the
-    1100 x 40 and 1400 x 16 cases); either way the result, lines included,
-    equals the plain version's."""
+    600 x 600 case: its codes alone take 382,236 bytes); either way the
+    result, lines included, equals the plain version's."""
     b, la_max, lb_max, _seed = case
     pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
     monkeypatch.setenv("LARA_DP_RESIDENT", "1")
-    fits = gotoh_plan.resident_bytes(la_max, lb_max) \
-        <= gotoh_cuda.smem_optin(cuda)
-    assert fits == (la_max < 1000)
+    fits = gotoh_plan.resident_warps(la_max, lb_max,
+                                     gotoh_cuda.smem_optin(cuda)) > 0
+    assert fits == ((la_max, lb_max) != (600, 600))
     plan = gotoh_cuda.plan_for(la_max, lb_max, cuda)
     assert plan.variant == (gotoh_plan.RESIDENT if fits
                             else gotoh_plan.STREAM)
@@ -283,6 +285,9 @@ def test_resident_plan_and_kernel_match_plain(case, cuda, monkeypatch):
         for field, got, want in zip(gotoh.Traceback._fields[:5], direct,
                                     tb_p):
             _int_equal(got, want, field)
+    else:
+        with pytest.raises(ValueError, match="does not fit"):
+            gotoh_cuda.align_resident(pssm_t, la_t, lb_t, GO, GE, seq_t)
 
 
 @pytest.mark.parametrize("matching", [5, 0])
@@ -804,3 +809,40 @@ def test_sharded_solve_on_one_card_matches_one_device(cuda, tmp_path):
     app.run(Parameters(in_file=path, num_iterations=60, out_file=str(out)),
             devices=[cuda, cuda])
     assert out.read_text() == cpu_lib
+
+
+@pytest.mark.parametrize("rows,cols,carry", [(1, 1664, False),
+                                             (8, 256, True),
+                                             (8, 1664, False),
+                                             (32, 256, True)])
+@pytest.mark.parametrize("reps", [1, 2, 5])
+def test_wavefront_chain_matches_plain(rows, cols, carry, reps, cuda):
+    """KB (``csrc/wavefront_chain.cu``) equals its plain version on random
+    inputs and near INT32_MAX, where the adds wrap, and launches once."""
+    from lara_tpu_torch.benchmark import profile_wavefront_layout as kb
+
+    rng = np.random.default_rng(rows * cols + reps)
+    for x in (rng.integers(-1000, 1000, (rows, cols)),
+              2**31 - 1 - rng.integers(0, 300, (rows, cols))):
+        x_t = torch.from_numpy(x.astype(np.int32)).to(cuda)
+        before = _build.launches["wavefront_chain"]
+        got = kb.chain(x_t, reps, carry)
+        assert _build.launches["wavefront_chain"] == before + 1
+        want = kb.chain_plain(x_t, reps, carry)
+        torch.cuda.synchronize()
+        _int_equal(got, want, "m + h")
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 48), (33, 64), (9, 1664),
+                                       (1, 96)])
+def test_wavefront_chain_refuses_what_it_cannot_run(rows, cols, cuda):
+    """cols not a multiple of 32, more than 32 rows, more rows than a run
+    of 52 allows, and a run it was not built for raise; nothing falls back
+    to the plain version."""
+    from lara_tpu_torch.benchmark import profile_wavefront_layout as kb
+
+    x = torch.ones((rows, cols), dtype=torch.int32, device=cuda)
+    before = _build.launches["wavefront_chain"]
+    with pytest.raises(_build.KernelLaunchError):
+        kb.chain(x, 1, False)
+    assert _build.launches["wavefront_chain"] == before

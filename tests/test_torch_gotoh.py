@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from lara_tpu.ops import gotoh as jax_gotoh
 from lara_tpu.ops.gotoh_pallas import align_pssm_batch_pallas
 from lara_tpu.types import PSSM_INIT, f2i
-from lara_tpu_torch.ops import gotoh, gotoh_cuda
+from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
 from lara_tpu_torch.params import Parameters
 
 GO, GE = -49152, -16384
@@ -204,8 +204,8 @@ def _strip_schedule_finishes(la, lb, cluster):
 
 
 def test_k1_constants_match_the_source():
-    assert _k1_constants() == (gotoh_cuda.K1_MAX_WARPS, gotoh_cuda.K1_RING,
-                               gotoh_cuda.K1_SUB)
+    assert _k1_constants() == (gotoh_plan.K1_MAX_WARPS, gotoh_plan.K1_RING,
+                               gotoh_plan.K1_SUB)
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4])
@@ -218,8 +218,8 @@ def test_k1_ring_safe_shapes_finish(cluster):
     stalls = multi = 0
     for la in (90, 600, 1100, 1536, 2100, 2900):
         strips = (la + 32) // 32
-        p = cluster * min(gotoh_cuda.K1_MAX_WARPS, -(-strips // cluster))
-        longest = p * (gotoh_cuda.K1_RING + 28 - gotoh_cuda.K1_SUB) - 32
+        p = cluster * min(gotoh_plan.K1_MAX_WARPS, -(-strips // cluster))
+        longest = p * (gotoh_plan.K1_RING + 28 - gotoh_plan.K1_SUB) - 32
         for lb in (1, 45, 700, 1536, longest - 40, longest):
             if lb >= 1 and gotoh_cuda.ring_safe(la, lb, cluster):
                 assert _strip_schedule_finishes(la, lb, cluster), (la, lb)

@@ -34,7 +34,7 @@ import jax.numpy as jnp
 from lara_tpu.ops import gotoh as jax_gotoh
 from lara_tpu.ops.gotoh_pallas import align_pssm_batch_pallas, \
     gotoh_scan_pallas
-from lara_tpu_torch.ops import gotoh, gotoh_cuda
+from lara_tpu_torch.ops import gotoh, gotoh_cuda, gotoh_plan
 
 from tests.test_torch_gotoh import CASES, GE, GO, _problem
 
@@ -93,7 +93,7 @@ def _k1_grid_model(skewed, la, lb, go, ge, dchunk):
     writes = np.zeros(dirs.size, np.int64)
     finals = np.zeros((3, batch), np.int64)
     border = gotoh_cuda.border_codes(go, ge, width).astype(np.int64)
-    cols = gotoh_cuda.K1_TILE_COLS
+    cols = gotoh_plan.K1_TILE_COLS
     t = np.arange(32)
     dstride = batch * width  # a diagonal of the skewed stream and of dirs
     for b in range(batch):
@@ -321,7 +321,7 @@ def test_grid_constants_match_the_source():
     got = tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
                     .group(1))
                 for name in ("kTileCols", "kWinRows", "kWinBytes", "kSeg"))
-    assert got == (gotoh_cuda.K1_TILE_COLS, gotoh_cuda.K2_WIN_ROWS,
+    assert got == (gotoh_plan.K1_TILE_COLS, gotoh_cuda.K2_WIN_ROWS,
                    gotoh_cuda.K2_WIN_BYTES, gotoh_cuda.K2_SEG)
     assert not os.path.exists(os.path.join(os.path.dirname(path),
                                            "gotoh_grid.cu"))

@@ -115,21 +115,33 @@ def test_plan_precedence(monkeypatch, env, want):
 
 
 @pytest.mark.parametrize("la_max,lb_max,limit,fits", [
-    (96, 96, gotoh_plan.H100_SMEM_OPTIN, True),     # 22,225 bytes
-    (320, 320, gotoh_plan.H100_SMEM_OPTIN, True),   # 217,329 bytes
-    (384, 384, gotoh_plan.H100_SMEM_OPTIN, False),  # 309,937 bytes
-    (320, 320, 200 * 1024, False),
-    (1100, 40, gotoh_plan.H100_SMEM_OPTIN, False),
+    (96, 96, gotoh_plan.H100_SMEM_OPTIN, True),     # 4 warps, 70,436 bytes
+    (320, 320, gotoh_plan.H100_SMEM_OPTIN, True),   # 8 warps, 229,524 bytes
+    (384, 384, gotoh_plan.H100_SMEM_OPTIN, True),   # 4 warps, 219,332 bytes
+    (448, 448, gotoh_plan.H100_SMEM_OPTIN, False),  # 1 warp: may stall
+    (320, 320, 150 * 1024, False),                  # 2 warps: may stall
+    (1100, 40, gotoh_plan.H100_SMEM_OPTIN, True),   # 10 warps, 227,740 bytes
 ])
 def test_plan_resident_fit(monkeypatch, la_max, lb_max, limit, fits):
+    """K-res fits where K1's strips of the warps that fit beside the codes
+    cannot stall: each warp needs K1's rings and a count, the codes
+    ``la_max + 1`` rows of an odd number of words past ``(lb_max + 31) // 4``
+    from a 16-byte boundary."""
     monkeypatch.delenv("LARA_DP_GRID", raising=False)
     monkeypatch.setenv("LARA_DP_RESIDENT", "1")
-    need = gotoh_plan.resident_bytes(la_max, lb_max)
-    assert need == (la_max + lb_max + 1) * (la_max + 1) \
-        + 4 * (9 * (la_max + 1) + 3)
+    warps = gotoh_plan.resident_warps(la_max, lb_max, limit)
+    pitch = gotoh_plan.resident_pitch(lb_max)
+    assert pitch % 2 == 1 and 4 * pitch >= lb_max + 32
+    for w in range(1, 17):
+        head = -(-(w * (32 * 96 + 6 * 88 + 1) + 3) // 4) * 4
+        assert gotoh_plan.resident_bytes(la_max, lb_max, w) \
+            == 4 * (head + (la_max + 1) * pitch)
+    if fits:
+        assert gotoh_plan.resident_bytes(la_max, lb_max, warps) <= limit
     plan = gotoh_plan.choose(la_max, lb_max, limit)
     assert plan.variant == (gotoh_plan.RESIDENT if fits
                             else gotoh_plan.STREAM)
+    assert (warps > 0) == fits
 
 
 @pytest.mark.parametrize("override", [None, "16", "3"])

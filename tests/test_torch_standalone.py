@@ -4,8 +4,10 @@
 (parameters, input and output, scoring, interaction models, the scalar
 mirror, the native libraries, the MSA, the structure predictor) and
 ``chip_smoke.py`` its own workloads (``lara_tpu_torch.workloads``).  An
-AST scan of every port module, ``chip_smoke.py`` and ``edge_filter_ab.py``
-finds no import of ``lara_tpu`` or ``bench``; a subprocess that imports
+AST scan of every port module (its ``benchmark`` subpackage included),
+``chip_smoke.py`` and ``edge_filter_ab.py`` finds no import of ``jax``,
+``lara_tpu``, ``bench`` or the repository's ``benchmark`` folder; a
+subprocess that imports
 every port module and runs the CLI on every path loads neither JAX nor
 ``lara_tpu``; and the
 copies give what the originals give on the same inputs, with zero
@@ -147,9 +149,16 @@ def port_params(params):
                          for f in dataclasses.fields(params)})
 
 
+#: top-level names the port may not import: JAX, the JAX package, the
+#: bench script and the repository's benchmark folder (whose scripts import
+#: the JAX package; the port's own is ``lara_tpu_torch.benchmark``)
+FOREIGN = ("jax", "lara_tpu", "bench", "benchmark")
+
+
 def _foreign_imports(path):
-    """Imports of ``lara_tpu`` (the exact package or a submodule, not
-    ``lara_tpu_torch``) or of ``bench`` in the source at ``path``."""
+    """Imports of :data:`FOREIGN` names (the exact package or a submodule:
+    not ``lara_tpu_torch``, nor ``lara_tpu_torch.benchmark``) in the source
+    at ``path``."""
     with open(path) as handle:
         tree = ast.parse(handle.read(), path)
     bad = []
@@ -162,7 +171,7 @@ def _foreign_imports(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            if top in ("lara_tpu", "bench"):
+            if top in FOREIGN:
                 bad.append((node.lineno, name))
     return bad
 
@@ -180,10 +189,16 @@ def test_the_scan_finds_foreign_imports(tmp_path):
     src.write_text("import lara_tpu\nfrom lara_tpu.params import P\n"
                    "import lara_tpu_torch\nfrom lara_tpu_torch import app\n"
                    "def f():\n    import bench\n"
-                   "    from lara_tpu import msa\n")
-    assert _foreign_imports(str(src)) == [
+                   "    from lara_tpu import msa\n"
+                   "import benchmark.profile_wavefront_layout\n"
+                   "from lara_tpu_torch.benchmark import "
+                   "profile_wavefront_layout\n"
+                   "from benchmark import pipeline\nimport jax.numpy\n"
+                   "from . import benchmark\n")
+    assert sorted(_foreign_imports(str(src))) == [
         (1, "lara_tpu"), (2, "lara_tpu.params"), (6, "bench"),
-        (7, "lara_tpu")]
+        (7, "lara_tpu"), (8, "benchmark.profile_wavefront_layout"),
+        (10, "benchmark"), (11, "jax.numpy")]
 
 
 def test_cli_paths_load_neither_jax_nor_lara_tpu(tmp_path):
@@ -219,7 +234,8 @@ def test_cli_paths_load_neither_jax_nor_lara_tpu(tmp_path):
         "except SystemExit as exc:\n"
         "    assert exc.code in (0, None), exc.code\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'lara_tpu', "
-        "'bench') or m.startswith(('jax.', 'lara_tpu.')))\n"
+        "'bench', 'benchmark') or m.startswith(('jax.', 'lara_tpu.', "
+        "'benchmark.')))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, LARA_PLATFORM="cpu")
