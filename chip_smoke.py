@@ -30,6 +30,18 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    microbenchmark's chain) at the three layouts of
    ``benchmark/profile_wavefront_layout.py``, reps 1, 2 and 5 and near
    INT32_MAX, timed at reps 5 beside its bound and at the source's 3600;
+   then the dispatch graph (``lara_tpu_torch.solver.dispatch_graph``: on
+   the card every ``solve_batch_chunk`` is one captured iteration,
+   replayed) against the eager loop it replaces: a K1 graph captured at
+   B=32 320x320 must replay after an eager K1 at B=128 96x96 (the
+   launcher opts K1 in to its largest shared memory once), and one dispatch of
+   125 iterations and a second one resumed from its carry, graphed and
+   eager from the same carry, on the tRNA, ~300 nt and 16S chunks, on the
+   tRNA chunk under ``LARA_DP_GRID=1`` and on the ~300 nt chunk under
+   ``LARA_DP_RESIDENT=1``: every carry field equal, no host sync in the
+   graphed dispatches (``torch.cuda.set_sync_debug_mode("error")``), the
+   plan's kernels counted once per iteration, replays included; with the
+   capture seconds and the peak memory of both ways;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
    families (``lara_tpu_torch.workloads``, copies of ``bench.py``'s): tRNA
    (120 pairs of ~72 nt), ~300 nt (28 pairs), 16S (28 pairs of 1530 nt,
@@ -57,6 +69,10 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
    ``LARA_PIPELINE=1`` in turns; each must write the same bytes.  Over
    shards the count is once per iteration of each shard's dispatches.
+   Every fused path's dispatches must be CUDA graphs (a spy on
+   ``dispatch_graph.run``), and the counts are replay-aware; tRNA and
+   16S run again with graphed and eager dispatches in turns (graphed,
+   eager, eager, graphed), each with the same bytes.
    tRNA and 16S run again with
    each chunk's lanes split over two shards of one card (``[cuda:0,
    cuda:0]``, ``lara_tpu_torch.parallel.mesh``; and over every card where
@@ -68,11 +84,12 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    --msa``, every pair against native, SPS and MCC printed by the port's
    ``evaluate``;
 4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks, and of
-   the tRNA chunk under ``LARA_DP_GRID=1``: the unprofiled wall per
-   iteration, and from ``torch.profiler`` the device busy share, kernels
-   per iteration and the K1/K2/K3 (K1-grid/K2-grid/K3) time; K3 is held
-   against the plain version, and timed, on the solver's own arguments of
-   iterations 1-3 and 25.
+   the tRNA chunk under ``LARA_DP_GRID=1``, eager and graphed side by
+   side: the unprofiled wall per iteration, and from ``torch.profiler``
+   the device busy share, kernels per iteration and the K1/K2/K3
+   (K1-grid/K2-grid/K3) time; K3 is held against the plain version, and
+   timed, on the solver's own arguments of iterations 1-3 and 25 (of the
+   eager loop, whose iterations call the wrappers).
 
 It then checks that neither JAX nor any module of the JAX package (nor
 ``bench``, nor the repository's ``benchmark``) was loaded, prints a
@@ -658,13 +675,36 @@ def _filtered_chunks():
         device_driver._filter_and_build = real
 
 
+@contextlib.contextmanager
+def _graph_dispatches():
+    """A list that gets the key of every dispatch that
+    ``dispatch_graph.run`` replays as a CUDA graph."""
+    from lara_tpu_torch.solver import dispatch_graph
+
+    keys = []
+    real = dispatch_graph.run
+
+    def spy(model, carry, key, steps):
+        keys.append(key)
+        return real(model, carry, key, steps)
+
+    dispatch_graph.run = spy
+    try:
+        yield keys
+    finally:
+        dispatch_graph.run = real
+
+
 def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
-               native_threads=1, same_as=None, devices=None, **params_kw):
+               native_threads=1, same_as=None, devices=None, graphed=True,
+               **params_kw):
     """One run of the port's CLI path on a family (``records``, or the
     path of an input file), on ``dev`` or split over ``devices``.  The
     launch counts are set to 0 just before the run and read just after it;
     the kernels that launched must be exactly ``expect``, and K4's two
-    exactly once per chunk the run filtered.  Every pair is
+    exactly once per chunk the run filtered.  A fused run (K3 in
+    ``expect``) must dispatch through CUDA graphs, and only through them,
+    unless ``graphed`` is false (the eager loop patched in).  Every pair is
     checked against the native C++ baseline (on ``native_threads``
     threads), or, with ``same_as`` (an earlier run's (library, results)),
     the library bytes against that library and every pair against that
@@ -692,7 +732,7 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
                         matching=matching, **params_kw)
     os.environ.update(env)
     try:
-        with _filtered_chunks() as chunks:
+        with _filtered_chunks() as chunks, _graph_dispatches() as graphs:
             _build.reset_launches()
             hybrid_driver.turns = 0
             start = time.perf_counter()
@@ -703,6 +743,10 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     finally:
         for key in env:
             del os.environ[key]
+    fused = "matching_rounds" in expect
+    if bool(graphs) != (fused and graphed):
+        raise AssertionError(f"{name}: {len(graphs)} graphed dispatches "
+                             f"(fused {fused}, graphed {graphed})")
     phases = timing.snapshot()
     with open(params.out_file) as handle:
         library = handle.read()
@@ -746,7 +790,8 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
         print(f"    native C++ baseline, one host thread, {timed}: "
               f"{native_s:.3f} s, {native_n / native_s:.3f} alignments/s")
     print(f"    launches: {launches}; {len(chunks)} chunk(s) filtered "
-          f"({', '.join(map(str, chunks))} pairs)")
+          f"({', '.join(map(str, chunks))} pairs); {len(graphs)} graphed "
+          f"dispatch(es) over {len(set(graphs))} key(s)")
     return launches, library, wall, run
 
 
@@ -1056,19 +1101,10 @@ def _k3_calls(keep):
         device_solver.greedy_matching_queue = real
 
 
-def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
-    """Where one chunk's solve spends its time, under the switches ``env``
-    (``LARA_DP_GRID=1``: K1-grid and K2-grid in place of K1 and K2): the
-    unprofiled wall of ``n_iter`` warm iterations, and from
-    ``torch.profiler`` over the same iterations the device time, kernels
-    per iteration and K1/K2/K3 time.
-    The busy share divides device time by the UNPROFILED wall (the profiler
-    itself slows the host).  K3's arguments in iterations 1, 2, 3 and
-    ``n_iter`` of the first solve are kept, and K3 is held against the
-    plain version and timed on them: the solver's real queues."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def _chunk_batch(records, dev):
+    """One chunk of ``records`` at default parameters, as
+    ``device_driver`` packs it: (batch, scan_steps, solver arguments after
+    the carry, a function that makes the starting carry)."""
     from lara_tpu_torch.app import enumerate_pairs
     from lara_tpu_torch.params import Parameters
     from lara_tpu_torch.solver import device_driver, device_solver
@@ -1081,47 +1117,248 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
     batch, scan_steps = device_driver._pack_models(models, pad, pad, dev)
     b, d = batch.dual_l.shape
 
-    def solve():
-        carry = device_solver._init_carry(
+    def carry0():
+        return device_solver._init_carry(
             b, d, pad, np.float32(params.step_size_factor),
             int(params.num_iterations), dev)
-        device_solver.solve_batch_chunk(
-            batch, carry, int(params.gap_open_int),
-            int(params.gap_extend_int), pad, pad, n_iter,
-            int(params.max_nondecr_iterations), int(params.matching),
-            scan_steps)
-        torch.cuda.synchronize()
 
-    env = env or {}
-    os.environ.update(env)
+    args = (int(params.gap_open_int), int(params.gap_extend_int), pad, pad)
+    rest = (int(params.max_nondecr_iterations), int(params.matching),
+            scan_steps)
+    return batch, (args, rest), carry0, models
+
+
+@contextlib.contextmanager
+def _env(env):
+    os.environ.update(env or {})
     try:
-        with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
-            solve()
-        start = time.perf_counter()
-        solve()
-        wall_ms = (time.perf_counter() - start) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            solve()
+        yield
     finally:
-        for key in env:
+        for key in env or {}:
             del os.environ[key]
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    # K1 is dp_wave_kernel<false, false>, K1-grid <false, true>; K2 and
-    # K2-grid are both dp_walk_kernel
-    ours = {name: sum(e.self_device_time_total for e in device
-                      if f"{name}_kernel" in e.key) / n_iter
-            for name in ("dp_wave", "dp_walk", "matching_rounds")}
-    names = "K1-grid/K2-grid/K3" if env.get("LARA_DP_GRID") else "K1/K2/K3"
-    label += "".join(f" {k}={v}" for k, v in env.items())
-    print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations: "
-          f"{wall_ms / n_iter:.3f} ms/iteration unprofiled, device busy "
-          f"{busy_ms / n_iter:.3f} ms/iteration ({busy_ms / wall_ms:.1%}), "
-          f"{sum(e.count for e in device) / n_iter:.1f} kernels/iteration, "
-          f"{names} " + " / ".join(f"{us:.1f}" for us in ours.values())
-          + " us/iteration")
+
+
+def _dispatch(batch, carry, how, steps, eager=False):
+    """One ``solve_batch_chunk`` of ``steps`` iterations: the CUDA graph,
+    or with ``eager`` the eager loop it is held to."""
+    from lara_tpu_torch.solver import device_solver
+
+    (go, ge, la_max, lb_max), rest = how
+    solve = device_solver._eager_dispatch if eager \
+        else device_solver.solve_batch_chunk
+    return solve(batch, carry, go, ge, la_max, lb_max, steps, *rest)
+
+
+def _graph_phase(label, records, dev, expect, env=None, steps=125):
+    """One dispatch of ``steps`` iterations and a second one resumed from
+    its carry, eager and graphed from the same starting carry: every carry
+    field of both dispatches equal (zero tolerance), the two graphed
+    dispatches (the first runs one eager iteration, captures and replays
+    the rest) under ``torch.cuda.set_sync_debug_mode("error")``, and the
+    kernels ``expect`` counted exactly once per iteration, replays
+    included.  Prints the capture seconds and the peak memory of each way
+    beside ``device_driver``'s estimate of the chunk (``_chunk_est_bytes``)."""
+    import torch
+
+    from lara_tpu_torch import _build
+    from lara_tpu_torch.solver import device_driver, dispatch_graph
+
+    with _env(env):
+        batch, how, carry0, models = _chunk_batch(records, dev)
+        dispatch_graph.release()
+        peaks, walls, carries = {}, {}, {}
+        for way in ("eager", "graph"):
+            first = carry0()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            _build.reset_launches()
+            start = time.perf_counter()
+            if way == "graph":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                one = _dispatch(batch, first, how, steps, way == "eager")
+                two = _dispatch(batch, one, how, steps, way == "eager")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            walls[way] = time.perf_counter() - start
+            peaks[way] = torch.cuda.max_memory_allocated(dev) - base
+            carries[way] = (one, two)
+        launches = dict(_build.launches)
+        capture_s = dispatch_graph.last_capture_seconds
+        dispatch_graph.release()
+    for k, (got, want) in enumerate(zip(carries["graph"], carries["eager"])):
+        for field, g, w in zip(got._fields, got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: dispatch {k + 1}, {field}: "
+                                     "the graph differs from the eager loop")
+    want = {name: 2 * steps for name in expect}
+    got = {name: n for name, n in launches.items() if n}
+    if got != want:
+        raise AssertionError(f"{label}: the graphed dispatches launched "
+                             f"{got}, expected {want}")
+    b, d = batch.dual_l.shape
+    la_max, lb_max = how[0][2:]
+    est = device_driver._chunk_est_bytes(len(models), la_max, lb_max, d)
+    name = label + "".join(f" {k}={v}" for k, v in (env or {}).items())
+    print(f"  {name}: B={b} D={d} {la_max}x{lb_max}, two dispatches of "
+          f"{steps}: every carry field equal, no host sync in the graphed "
+          f"ones, {got}; capture {capture_s * 1e3:.3f} ms; peak memory "
+          f"eager {peaks['eager'] / 1e9:.4f} GB, graphed "
+          f"{peaks['graph'] / 1e9:.4f} GB (difference "
+          f"{(peaks['graph'] - peaks['eager']) / 1e9:+.4f} GB; "
+          f"_chunk_est_bytes {est / 1e9:.4f} GB); wall eager "
+          f"{walls['eager']:.3f} s, graphed {walls['graph']:.3f} s")
+
+
+def _smem_repair_check(dev):
+    """K1 captured in a CUDA graph at B=32 320x320 on one CTA per pair
+    (158 KB of shared memory) must replay after an eager K1 at B=128
+    96x96 (58 KB) and give the eager codes: the launcher opts the kernel
+    in to its largest shared memory once, and no launch lowers it."""
+    import torch
+
+    from lara_tpu_torch.ops import gotoh_cuda
+
+    go, ge = -49152, -16384
+    rng = np.random.default_rng(12)
+
+    def problem(b, n):
+        pssm = torch.from_numpy(rng.integers(-9000, 9000, (b, n, n)).astype(
+            np.int32)).to(dev)
+        return pssm, torch.full((b,), n, dtype=torch.int32, device=dev)
+
+    big, big_len = problem(32, 320)
+    small, small_len = problem(128, 96)
+    want = gotoh_cuda.dp_forward(big, big_len, big_len, go, ge, cluster=1)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        got = gotoh_cuda.dp_forward(big, big_len, big_len, go, ge, cluster=1)
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    gotoh_cuda.dp_forward(small, small_len, small_len, go, ge)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    d_idx = torch.arange(641, device=dev)[None, :, None]
+    i_idx = torch.arange(321, device=dev)[None, None, :]
+    valid = (d_idx >= i_idx) & (d_idx - i_idx <= 320)
+    if not (torch.equal(torch.where(valid, got[0], 0),
+                        torch.where(valid, want[0], 0))
+            and torch.equal(got[1], want[1])):
+        raise AssertionError("a K1 graph at 320x320 did not replay after a "
+                             "96x96 launch")
+    print("  K1 graphed at B=32 320x320 (1 CTA per pair) replays after an "
+          "eager K1 at B=128 96x96: the codes and finals of the eager call")
+
+
+@contextlib.contextmanager
+def _eager_dispatches():
+    """Every ``solve_batch_chunk`` inside runs the eager loop."""
+    from lara_tpu_torch.solver import device_solver
+
+    graphed = device_solver.solve_batch_chunk
+    device_solver.solve_batch_chunk = device_solver._eager_dispatch
+    try:
+        yield
+    finally:
+        device_solver.solve_batch_chunk = graphed
+
+
+def _turns_path(family, dev, tmp, expect, one):
+    """The fused main path graphed and eager in turns (graphed, eager,
+    eager, graphed), each with the bytes and pairs of ``one`` (the first
+    graphed run of the family in this script) and K1, K2 and K3 exactly
+    once per iteration; prints the walls and solve phases."""
+    from lara_tpu_torch.utils import timing
+
+    label = family[0]
+    same = (one[1], one[3].results)
+    walls = {"graphed": [], "eager": []}
+    for way in ("graphed", "eager", "eager", "graphed"):
+        with _eager_dispatches() if way == "eager" \
+                else contextlib.nullcontext():
+            run = _main_path(*family, dev, tmp, expect, same_as=same,
+                             graphed=way == "graphed")
+        _exact_launches(f"{label} {way}", run[0], run[3].results, 1)
+        walls[way].append((run[2], timing.snapshot()[
+            "subgradient solve (device)"]))
+    print(f"    {label}, wall (solve phase) in turns (graphed, eager, eager, "
+          "graphed): " + "; ".join(
+              f"{k} " + ", ".join(f"{w:.3f} ({s:.3f})" for w, s in v) + " s"
+              for k, v in walls.items()))
+
+
+def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
+    """Where one chunk's solve spends its time, under the switches ``env``
+    (``LARA_DP_GRID=1``: K1-grid and K2-grid in place of K1 and K2), eager
+    and graphed side by side: the unprofiled wall of ``n_iter`` warm
+    iterations (graphed: replays of a graph captured before), and from
+    ``torch.profiler`` over the same iterations the device time, kernels
+    per iteration and K1/K2/K3 time.
+    The busy share divides device time by the UNPROFILED wall (the profiler
+    itself slows the host).  K3's arguments in iterations 1, 2, 3 and
+    ``n_iter`` of the first (eager) solve are kept, and K3 is held against
+    the plain version and timed on them: the solver's real queues."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lara_tpu_torch.solver import dispatch_graph
+
+    with _env(env):
+        batch, how, carry0, _ = _chunk_batch(records, dev)
+        b, d = batch.dual_l.shape
+        pad = how[0][2]
+
+        def solve(eager):
+            _dispatch(batch, carry0(), how, n_iter, eager)
+            torch.cuda.synchronize()
+
+        with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
+            solve(True)
+        solve(False)  # captures the graph
+        lines = {}
+        for way, eager in (("eager", True), ("graphed", False)):
+            start = time.perf_counter()
+            solve(eager)
+            wall_ms = (time.perf_counter() - start) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                solve(eager)
+            lines[way] = (wall_ms, prof)
+        dispatch_graph.release()
+    names = "K1-grid/K2-grid/K3" if (env or {}).get("LARA_DP_GRID") \
+        else "K1/K2/K3"
+    label += "".join(f" {k}={v}" for k, v in (env or {}).items())
+    print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations:")
+    for way, (wall_ms, prof) in lines.items():
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        # K1 is dp_wave_kernel<false, false>, K1-grid <false, true>; K2 and
+        # K2-grid are both dp_walk_kernel
+        ours = {name: sum(e.self_device_time_total for e in device
+                          if f"{name}_kernel" in e.key) / n_iter
+                for name in ("dp_wave", "dp_walk", "matching_rounds")}
+        # graphed: mostly the copies of the carry back into the static one
+        copies = [e for e in device if "Memcpy DtoD" in e.key]
+        seen = (f"device busy {busy_ms / n_iter:.3f} ms/iteration "
+                f"({busy_ms / wall_ms:.1%}), "
+                f"{sum(e.count for e in device) / n_iter:.1f} "
+                f"kernels/iteration, {names} "
+                + " / ".join(f"{us:.1f}" for us in ours.values())
+                + " us/iteration, device-to-device copies "
+                f"{sum(e.count for e in copies) / n_iter:.1f}/iteration "
+                f"{sum(e.self_device_time_total for e in copies) / n_iter:.1f}"
+                " us/iteration") if device else \
+            "the profiler saw no device time (not measured)"
+        print(f"    {way:8s} {wall_ms / n_iter:.3f} ms/iteration "
+              f"unprofiled, {seen}")
     for k in sorted(calls):
         args = calls[k]
         _hold_matching(f"{label} iteration {k + 1}", args[:5], args[5],
@@ -1210,6 +1447,15 @@ def main() -> int:
         for name, n in run.items():
             launches[name] += n
 
+    print("dispatch graph against the eager loop, two dispatches of 125 "
+          "iterations:")
+    _smem_repair_check(dev)
+    for label, records in families:
+        _graph_phase(label, records, dev, FUSED_ITERATION)
+    _graph_phase(*trna, dev, GRID_ITERATION, env={"LARA_DP_GRID": "1"})
+    _graph_phase(*rrna, dev, ("gotoh_resident", "matching_rounds"),
+                 env={"LARA_DP_RESIDENT": "1"})
+
     with tempfile.TemporaryDirectory() as tmp:
         print("main path: lara_tpu_torch.app.run, default parameters:")
         one = {}
@@ -1222,6 +1468,9 @@ def main() -> int:
         print("16S, one 1536x1536 bucket:")
         one[long16[0]] = _long_path(long16, dev, tmp, fused, k4_16s)
         count(one[long16[0]][0])
+        print("graphed and eager dispatches in turns:")
+        for family in (trna, long16):
+            _turns_path(family, dev, tmp, fused, one[family[0]])
         print("mixed lengths, three buckets, serial and pipelined:")
         count(_mixed_path(("mixed-trna+300nt", trna[1] + rrna[1]), dev, tmp,
                           fused))
@@ -1259,7 +1508,7 @@ def main() -> int:
     count(kb_run)
     print(f"  kernel launches, each from the runs meant to launch it: "
           f"{launches}")
-    print("where one chunk's solve spends its time:")
+    print("where one chunk's solve spends its time, eager and graphed:")
     for label, records in (trna, rrna):
         _profile_phase(label, records, dev, stats)
     _profile_phase(*long16, dev, stats)

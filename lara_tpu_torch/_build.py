@@ -11,11 +11,17 @@ but 0.  A failed build raises; nothing falls back to another path.
 
 ``launches`` counts kernel launches per kernel: each wrapper calls
 :func:`count` where it launches its kernel, and nowhere else (the driver's
-pipeline launches from a worker thread, so the count takes a lock).
+pipeline launches from a worker thread, so the count takes a lock).  A
+CUDA graph runs its kernels without the wrappers: its capture runs them
+under :func:`recording`, which takes this thread's counts out of
+``launches`` into a record, and every replay adds that record back with
+:func:`add` (:mod:`lara_tpu_torch.solver.dispatch_graph`).  So
+``launches`` says how often each kernel ran, replays included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -38,6 +44,7 @@ launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_local = threading.local()  # .record: this thread's recording() dict
 _lib = None
 _build_seconds = 0.0
 
@@ -57,9 +64,34 @@ def reset_launches() -> None:
 
 
 def count(name: str) -> None:
-    """Add one launch of kernel ``name``."""
+    """Add one launch of kernel ``name`` (inside :func:`recording` on this
+    thread, to its record instead)."""
+    record = getattr(_local, "record", None)
+    if record is not None:
+        record[name] = record.get(name, 0) + 1
+        return
     with _count_lock:
         launches[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """A dict that gets this thread's launch counts inside the block, in
+    place of ``launches``: a graph capture launches nothing."""
+    outer = getattr(_local, "record", None)
+    _local.record = record = {}
+    try:
+        yield record
+    finally:
+        _local.record = outer
+
+
+def add(counts, times: int) -> None:
+    """Add ``counts`` (kernel name -> launches) ``times`` times: the
+    launches of a graph's replays."""
+    with _count_lock:
+        for name, n in counts.items():
+            launches[name] += n * times
 
 
 def build_seconds() -> float:

@@ -138,6 +138,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -808,6 +809,26 @@ size_t resident_bytes(int la_max, int lb_max, int nw) {
          sizeof(int);
 }
 
+// Opt one instance of dp_wave_kernel in to kMaxSmem of dynamic shared memory
+// on the current device, once.  The attribute is a ceiling, not a
+// reservation: each launch still asks for its own size, and launch_wave
+// refuses more than kMaxSmem.  Setting it to a launch's own size instead
+// would let a smaller launch fail a CUDA graph captured at a larger size.
+constexpr int kMaxDevices = 64;
+
+template <bool kPrefix, bool kSkewed, bool kResident>
+cudaError_t opt_in_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || done[device % kMaxDevices].load()) return err;
+  err = cudaFuncSetAttribute(dp_wave_kernel<kPrefix, kSkewed, kResident>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err == cudaSuccess) done[device % kMaxDevices].store(true);
+  return err;
+}
+
 // K1, K1-grid (kSkewed) or K4's sweep (kPrefix) over ``batch`` lanes in
 // clusters of ``cluster`` CTAs per lane, min(16, strips / cluster) warps
 // each; K-res (kResident) on one CTA of nw warps per pair.
@@ -827,10 +848,7 @@ int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
       kResident ? resident_bytes(la_max, lb_max, nw)
                 : (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      dp_wave_kernel<kPrefix, kSkewed, kResident>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = opt_in_smem<kPrefix, kSkewed, kResident>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * cluster);

@@ -79,8 +79,12 @@ def border_codes(go: int, ge: int, width: int) -> np.ndarray:
     return codes
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _border_on(go: int, ge: int, width: int, device: torch.device):
+    """:func:`border_codes` on ``device``, kept for the process: a captured
+    CUDA graph reads it at its address on every replay
+    (:mod:`lara_tpu_torch.solver.dispatch_graph`), and the first call's
+    upload must come before any capture."""
     return torch.from_numpy(border_codes(go, ge, width)).to(device)
 
 

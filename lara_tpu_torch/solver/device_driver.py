@@ -57,7 +57,7 @@ from lara_tpu_torch.ops import gotoh, gotoh_cuda
 from lara_tpu_torch.parallel import mesh
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.scoring.ribosum import encode_rna5
-from lara_tpu_torch.solver import device_solver, interactions
+from lara_tpu_torch.solver import device_solver, dispatch_graph, interactions
 from lara_tpu_torch.solver.reference_driver import PairResult
 from lara_tpu_torch.types import INFINITY, f2i
 from lara_tpu_torch.utils import log, timing
@@ -180,8 +180,18 @@ def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
                    "bookkeeping")
         return hybrid_driver.solve_all(store, pairs, params, devices[0])
     device_solver.dispatch_size()  # raises on a bad LARA_CHUNK
-    return _run_tasks(store, _plan_tasks(store, pairs, len(devices)), params,
-                      devices)
+    return _released(_run_tasks(store, _plan_tasks(store, pairs,
+                                                   len(devices)),
+                                params, devices))
+
+
+def _released(results: Iterator[PairResult]) -> Iterator[PairResult]:
+    """``results``, then the dispatch graphs of the solve go with their
+    memory pools: no later chunk of it reuses them."""
+    try:
+        yield from results
+    finally:
+        dispatch_graph.release()
 
 
 def _padded_batch(b: int, n_dev: int = 1) -> int:

@@ -27,8 +27,13 @@ On the card one iteration holds no host synchronisation: K2 and K3 replace
 the two data-dependent loops, a dispatch runs all of its iterations (every
 carry write is masked by the lane's activity, so iterations after all lanes
 finish change nothing) and :func:`solve_batch` reads ``lane_active.any()``
-once per dispatch.  On the CPU, where that read is free, a dispatch also
-stops as soon as no lane is active.  ``LARA_CHUNK`` sets the iterations per
+once per dispatch.  There a dispatch is one iteration captured as a CUDA
+graph and replayed once per iteration
+(:mod:`lara_tpu_torch.solver.dispatch_graph`), the counterpart of the JAX
+package's one jitted ``while_loop``; the results are those of the eager
+loop, bit for bit.  On the CPU a dispatch is the eager loop
+(:func:`_eager_dispatch`), which also stops as soon as no lane is active,
+since the read is free there.  ``LARA_CHUNK`` sets the iterations per
 dispatch (:func:`dispatch_size`).
 
 :func:`splice_lanes` reloads lanes of a live (model, carry) with new pairs:
@@ -397,11 +402,28 @@ def _iteration(model: BatchModel, st: _Static, c: _Carry, go: int, ge: int,
 def solve_batch_chunk(model: BatchModel, carry: _Carry, go, ge, la_max: int,
                       lb_max: int, max_steps: int, max_nondecr: int,
                       lookahead: int, scan_steps: int = 0) -> _Carry:
-    """Up to ``max_steps`` iterations; resumable.
+    """Up to ``max_steps`` iterations; resumable.  On the card, replays of
+    the iteration's CUDA graph (:mod:`~lara_tpu_torch.solver.
+    dispatch_graph`); on the CPU, :func:`_eager_dispatch`.
 
     ``scan_steps``: doubling passes of the per-edge run scan; 2**scan_steps
     must cover the longest per-edge run (0 = full depth, always safe).
     """
+    from lara_tpu_torch.solver import dispatch_graph
+
+    if dispatch_graph.Graph.applies(carry.lane_active.device):
+        key = dispatch_graph.key_of(model, go, ge, la_max, lb_max,
+                                    max_nondecr, lookahead, scan_steps)
+        return dispatch_graph.run(model, carry, key, max_steps)
+    return _eager_dispatch(model, carry, go, ge, la_max, lb_max, max_steps,
+                           max_nondecr, lookahead, scan_steps)
+
+
+def _eager_dispatch(model: BatchModel, carry: _Carry, go, ge, la_max: int,
+                    lb_max: int, max_steps: int, max_nondecr: int,
+                    lookahead: int, scan_steps: int = 0) -> _Carry:
+    """:func:`solve_batch_chunk` as a loop of eager iterations: the CPU's
+    dispatch, and on the card the reference that the graph is held to."""
     go, ge = int(go), int(ge)
     st = _prepare(model, la_max, lb_max, scan_steps)
     sync_free = carry.lane_active.is_cuda
@@ -424,10 +446,11 @@ def splice_lanes(model: BatchModel, carry: _Carry, lanes, rows: BatchModel,
 
     ``lanes`` holds distinct lane indices (a sequence or an int tensor) and
     ``rows`` one :class:`BatchModel` row per lane, padded as the model is
-    (every ``rev`` row an involution, identity on padding).  Eager torch
-    needs no fixed splice width and no drop slots: there is no compiled
-    program to reuse.  Returns a new (model, carry); the inputs are left
-    as they were."""
+    (every ``rev`` row an involution, identity on padding).  No fixed
+    splice width and no drop slots: the next dispatch copies the new
+    model and carry into its graph's static buffers, and the graph is not
+    captured again.  Returns a new (model, carry); the inputs are left as
+    they were."""
     dev = model.la.device
     lanes = torch.as_tensor(lanes, dtype=torch.long).to(dev)
     k = lanes.shape[0]

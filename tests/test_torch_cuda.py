@@ -12,7 +12,10 @@ included, K3 at ragged
 widths, arbitrary ids, lookahead 1-8, a queue wider than its ring and its
 shared-memory set, and on the solver's own 16S queues; the driver's
 paths (fused, hybrid, lane refill, the cross-chunk pipeline on its CUDA
-streams) and ``splice_lanes`` on the card against the CPU.  This
+streams) and ``splice_lanes`` on the card against the CPU; the dispatch
+graph (a CUDA graph of one solver iteration, replayed) against the
+eager loop, and a K1 graph replayed after a launch that needs less
+shared memory.  This
 file imports no JAX and nothing of ``lara_tpu``, so it runs on a machine
 that has a card and no JAX:
 
@@ -493,7 +496,8 @@ def test_matching_kernel_on_solver_inputs(cuda):
 
     device_solver.greedy_matching_queue = spy
     try:
-        device_solver.solve_batch_chunk(
+        # the eager loop: a graph's replays call no wrapper
+        device_solver._eager_dispatch(
             batch, carry, int(params.gap_open_int),
             int(params.gap_extend_int), pad, pad, 4,
             int(params.max_nondecr_iterations), int(params.matching),
@@ -846,3 +850,85 @@ def test_wavefront_chain_refuses_what_it_cannot_run(rows, cols, cuda):
     with pytest.raises(_build.KernelLaunchError):
         kb.chain(x, 1, False)
     assert _build.launches["wavefront_chain"] == before
+
+
+def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
+    """``solve_batch_chunk`` on the card (a CUDA graph of one iteration,
+    replayed) against the eager loop: dispatches of 7 and then 5
+    iterations from the same carry give every carry field of the eager
+    ones, with no host sync in the graphed dispatches, one capture, and
+    K1, K2 and K3 counted 12 times each, replays included."""
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.io.records import InputStorage
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.solver import (device_driver, device_solver,
+                                       dispatch_graph)
+
+    path = _write_family(tmp_path / "family.dbn", [22], seed=6)
+    records = InputStorage(in_file=path)
+    params = Parameters(in_file=path, num_iterations=60)
+    models, _ = device_driver._filter_and_build(
+        records, enumerate_pairs(records), params, 32, 32, cuda)
+    batch, scan_steps = device_driver._pack_models(models, 32, 32, cuda)
+    b, d = batch.dual_l.shape
+    args = (int(params.gap_open_int), int(params.gap_extend_int), 32, 32)
+    rest = (int(params.max_nondecr_iterations), 5, scan_steps)
+
+    def two(solve):
+        carry = device_solver._init_carry(b, d, 32, np.float32(2.0), 60, cuda)
+        first = solve(batch, carry, *args, 7, *rest)
+        return first, solve(batch, first, *args, 5, *rest)
+
+    want = two(device_solver._eager_dispatch)
+    dispatch_graph.release()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = two(device_solver.solve_batch_chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        for name, x, y in zip(device_solver._Carry._fields, g, w):
+            _int_equal(x, y, name)
+    assert len(dispatch_graph._entries) == 1
+    assert {k: n for k, n in _build.launches.items() if n} == {
+        "gotoh_dp": 12, "gotoh_tb": 12, "matching_rounds": 12}
+    dispatch_graph.release()
+
+
+def test_k1_graph_replays_after_a_smaller_launch(cuda):
+    """K1 captured at B=32 320x320 on one CTA per pair (158 KB of shared
+    memory) replays after an eager K1 at B=128 96x96 (58 KB) and gives the
+    eager codes: the launcher opts the kernel in to its largest shared
+    memory once, and no launch lowers it."""
+    rng = np.random.default_rng(3)
+
+    def problem(b, n):
+        pssm = torch.from_numpy(rng.integers(-9000, 9000, (b, n, n)).astype(
+            np.int32)).to(cuda)
+        return pssm, torch.full((b,), n, dtype=torch.int32, device=cuda)
+
+    big, big_len = problem(32, 320)
+    small, small_len = problem(128, 96)
+    want = gotoh_cuda.dp_forward(big, big_len, big_len, GO, GE, cluster=1)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        got = gotoh_cuda.dp_forward(big, big_len, big_len, GO, GE, cluster=1)
+        graph.capture_end()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    gotoh_cuda.dp_forward(small, small_len, small_len, GO, GE)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    d_idx = torch.arange(641, device=cuda)[None, :, None]
+    i_idx = torch.arange(321, device=cuda)[None, None, :]
+    valid = (d_idx >= i_idx) & (d_idx - i_idx <= 320)
+    _int_equal(torch.where(valid, got[0], 0), torch.where(valid, want[0], 0),
+               "dirs")
+    _int_equal(got[1], want[1], "finals")
