@@ -5,7 +5,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
 
 1. build the CUDA kernels of ``lara_tpu_torch/csrc`` and the port's native
    host libraries (g++) before anything is timed, and print the card, its
-   power limit, the torch version, the build times and, from
+   power limit, the torch, CUDA runtime and driver versions, the build
+   times and, from
    ``cuobjdump``, each kernel's registers, local memory and spills;
 2. hold every kernel against its plain PyTorch version on the card, exactly
    (integer outputs, zero tolerance), at the main path's shapes, and time
@@ -30,25 +31,33 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    microbenchmark's chain) at the three layouts of
    ``benchmark/profile_wavefront_layout.py``, reps 1, 2 and 5 and near
    INT32_MAX, timed at reps 5 beside its bound and at the source's 3600;
+   the loop exit (``csrc/loop_exit.cu``, the JAX ``while_loop``'s
+   ``cond`` on the card) against ``any()`` and the iteration budget at 128
+   and 32 lanes, a turn of its loop and an idle dispatch timed;
    then the dispatch graph (``lara_tpu_torch.solver.dispatch_graph``: on
-   the card every ``solve_batch_chunk`` is one captured iteration,
-   replayed) against the eager loop it replaces: a K1 graph captured at
+   the card every ``solve_batch_chunk`` is one launch of a graph whose
+   WHILE node loops over a captured iteration while a lane is active)
+   against the eager loop it replaces: a K1 graph captured at
    B=32 320x320 must replay after an eager K1 at B=128 96x96 (the
    launcher opts K1 in to its largest shared memory once), and one dispatch of
    125 iterations and a second one resumed from its carry, graphed and
    eager from the same carry, on the tRNA, ~300 nt and 16S chunks, on the
-   tRNA chunk under ``LARA_DP_GRID=1`` and on the ~300 nt chunk under
-   ``LARA_DP_RESIDENT=1``: every carry field equal, no host sync in the
-   graphed dispatches (``torch.cuda.set_sync_debug_mode("error")``), the
-   plan's kernels counted once per iteration, replays included; with the
-   capture seconds and the peak memory of both ways;
+   tRNA chunk without its structures (every lane done in its first
+   iteration), on the tRNA chunk under ``LARA_DP_GRID=1`` and on the
+   ~300 nt chunk under ``LARA_DP_RESIDENT=1``: every carry field equal, no
+   host sync in the graphed dispatches
+   (``torch.cuda.set_sync_debug_mode("error")``), the plan's kernels
+   counted once per iteration run; with the capture seconds and the peak
+   memory of both ways;
 3. drive the port's paths through ``lara_tpu_torch.app.run`` on the bench's
    families (``lara_tpu_torch.workloads``, copies of ``bench.py``'s): tRNA
    (120 pairs of ~72 nt), ~300 nt (28 pairs), 16S (28 pairs of 1530 nt,
    one 1536x1536 bucket) and the tRNA and ~300 nt families as one (276
    pairs in three buckets): the fused main path with default parameters on
    all four (16S is one chunk, the mixed family's buckets run one after
-   another), lane refill (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA
+   another), the tRNA family with its structures cleared as it is read
+   (one iteration of the 250 dispatched, its solve phase beside the
+   capture), lane refill (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA
    pairs through 64 lanes), the hybrid backend at ``-m 0`` on tRNA, the
    hybrid at ``-m 12`` on ~300 nt under ``LARA_DP_RESIDENT=1``, and the
    fused path under ``LARA_DP_GRID=1`` on tRNA; and KB's own entry
@@ -63,7 +72,11 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    kernels the run is meant to launch, K4's two once per chunk the run
    filtered (a spy on ``device_driver._filter_and_build`` counts them),
    and the fused runs of one chunk K1 + K2 + K3 (under ``LARA_DP_GRID=1``
-   K1-grid + K2-grid + K3) exactly once per iteration.
+   K1-grid + K2-grid + K3) exactly once per iteration of the JAX loop
+   (the longest lane's), the loop exit once per dispatch and iteration;
+   each run prints its model uploads (layout, bytes, and the ten arrays'
+   bytes), each dispatch's iterations run, and the hybrid's graph
+   replays.
    16S runs again under
    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
    under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
@@ -83,13 +96,16 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    (``benchmark/data/{trna,rrna5s,srp}``) run with ``--predict builtin
    --msa``, every pair against native, SPS and MCC printed by the port's
    ``evaluate``;
-4. profile 25 warm iterations of the tRNA, ~300 nt and 16S chunks, and of
+4. time 25 warm iterations of the tRNA, ~300 nt and 16S chunks, and of
    the tRNA chunk under ``LARA_DP_GRID=1``, eager and graphed side by
-   side: the unprofiled wall per iteration, and from ``torch.profiler``
-   the device busy share, kernels per iteration and the K1/K2/K3
-   (K1-grid/K2-grid/K3) time; K3 is held against the plain version, and
-   timed, on the solver's own arguments of iterations 1-3 and 25 (of the
-   eager loop, whose iterations call the wrappers).
+   side: first, before any profiler runs, the unprofiled wall per
+   iteration and the device time per iteration of the dispatch's loop
+   beside its captured iteration replayed bare (the loop exit's cost);
+   then from ``torch.profiler`` the device busy share, kernels per
+   iteration and the K1/K2/K3 (K1-grid/K2-grid/K3) time; K3 is held
+   against the plain version, and timed, on the solver's own arguments of
+   iterations 1-3 and 25 (of the eager loop, whose iterations call the
+   wrappers).
 
 It then checks that neither JAX nor any module of the JAX package (nor
 ``bench``, nor the repository's ``benchmark``) was loaded, prints a
@@ -102,6 +118,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -136,6 +153,11 @@ KERNELS = {
     # KB, the wavefront-layout microbenchmark (make_chain's pallas_call :76)
     "wavefront_chain": ("lara_tpu_torch/csrc/wavefront_chain.cu",
                         "benchmark/profile_wavefront_layout.py:47"),
+    # the loop exit of a graphed dispatch: not Pallas on the TPU but the
+    # cond of the dispatch's while_loop (:629-633), run once per dispatch
+    # and once per iteration
+    "loop_exit": ("lara_tpu_torch/csrc/loop_exit.cu",
+                  "lara_tpu/solver/device_solver.py:629"),
 }
 #: K4's kernels, launched once per chunk on every path
 K4 = ("edge_sweep", "edge_pack")
@@ -158,6 +180,11 @@ def _bound(nbytes: float, ops: float):
     by_ops = ops / ALU_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def _sig(x: float) -> float:
+    """``x`` to six significant digits (the loop exit's bound is 1e-8)."""
+    return float(f"{x:.6g}")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -391,6 +418,110 @@ def _kb_phase(dev, stats):
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms at reps 5  "
               f"bound {bound_ms:.6f} ms ({bound_by}); kernel at reps 3600 "
               f"{hi_ms:.4f} ms")
+
+
+def _loop_exit_phase(dev, stats):
+    """The loop exit's kernel (``csrc/loop_exit.cu``) against its plain
+    version, PyTorch's ``lane_active.any()`` and the iteration budget, at
+    the tRNA chunk's 128 lanes and the 16S chunk's 32: a graph of the
+    kernel and a WHILE node around a captured counter, launched with 3
+    iterations left and no lane, the first, the last, half of them at
+    random and every lane active (the body must run 3 times exactly when
+    ``any()`` holds, and be counted), then around a body that clears every
+    lane on its second run, launched with 5 left (2 runs).  Then timed
+    beside ``any()`` and the bound (the lanes' bytes and the counters',
+    read once): one turn of the loop around that one-kernel body (a launch
+    of 200 turns), and a launch with no lane active, the cost of the
+    dispatch after the last lane finishes."""
+    import torch
+
+    from lara_tpu_torch.solver import dispatch_graph
+
+    rng = np.random.default_rng(13)
+    for lanes in (128, 32):
+        active = torch.zeros(lanes, dtype=torch.bool, device=dev)
+        counters = torch.zeros(2, dtype=torch.int32, device=dev)
+        runs = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def launch(graph, left):
+            counters[0].fill_(left)
+            counters[1].zero_()
+            graph.replay()
+
+        masks = [np.zeros(lanes, bool), np.arange(lanes) == lanes - 1,
+                 np.arange(lanes) == 0, rng.random(lanes) < 0.5,
+                 np.ones(lanes, bool)]
+        err = 0
+        counted = dispatch_graph.CudaGraph(dev)
+        counted.capture(lambda: runs.add_(1), active, counters)
+        for mask in masks:
+            active.copy_(torch.from_numpy(mask))
+            runs.zero_()
+            launch(counted, 3)
+            want = 3 * int(bool(active.any()))
+            err = max(err, abs(int(runs) - want),
+                      abs(int(counters[1]) - want),
+                      abs(int(counters[0]) - (3 - want)))
+        clearing = dispatch_graph.CudaGraph(dev)
+        clearing.capture(lambda: (runs.add_(1), active.logical_and_(runs < 2)),
+                         active, counters)
+        active.fill_(True)
+        runs.zero_()
+        launch(clearing, 5)
+        err = max(err, abs(int(runs) - 2), abs(int(counters[1]) - 2))
+        if err:
+            raise AssertionError(f"the loop exit disagrees with any() at "
+                                 f"{lanes} lanes: {err}")
+        active.fill_(True)
+        turn_ms = _time_ms(lambda: launch(counted, 200), 20) / 200
+        active.zero_()
+        idle_ms = _time_ms(lambda: launch(counted, 125), 200)
+        plain_ms = _time_ms(lambda: active.any(), 200)
+        counted.close()
+        clearing.close()
+        bound_ms, bound_by = _bound(lanes + 8.0, float(lanes))
+        shape = f"B={lanes}"
+        stats["loop_exit"].append((shape, err, turn_ms, plain_ms, bound_ms,
+                                   bound_by, {"idle_dispatch_ms":
+                                              round(idle_ms, 6)}))
+        print(f"  {'loop_exit':16s} {shape:24s} max_abs_err {err} (none, "
+              f"first, last, random, all active; a body that ends the "
+              f"loop)  a turn of the loop {turn_ms:.4f} ms (with a "
+              f"one-kernel body)  a dispatch with no lane active "
+              f"{idle_ms:.4f} ms  any() {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.8f} ms ({bound_by})")
+
+
+def _structure_free_path(dev, tmp):
+    """The bench's tRNA family without its base-pair edges (120 pairs, one
+    96x96 chunk, every lane done in its first iteration; the
+    structure-free family of ``benchmark/PROFILE.md:208-212``) through
+    ``app.run``: a record of the input file that has no structure is
+    folded when it is read, so the records are cleared of their edges as
+    ``app.load_input`` returns them.  Every pair equal to native, K1, K2
+    and K3 launched once (the JAX loop's one trip) in the 250 iterations
+    dispatched (the first dispatch and the late one), and the solve phase
+    beside the capture's seconds.  Returns the run's launch counts."""
+    from lara_tpu_torch.solver import dispatch_graph
+    from lara_tpu_torch.utils import timing
+    from lara_tpu_torch.workloads import make_family
+
+    def clear(store):
+        for record in store:
+            record.bpp_edges, record.fixed_edges = [], []
+
+    label = "trna-72nt-structure-free"
+    run = _main_path(label, make_family(n=16), dev, tmp,
+                     FUSED_ITERATION + K4, edit=clear)
+    ran = _exact_launches(label, run[0], run[3].results, 1)
+    if ran != [(1, 250)]:
+        raise AssertionError(f"{label}: ran {ran}, expected one iteration "
+                             "of 250 dispatched")
+    solve_s = timing.snapshot()["subgradient solve (device)"]
+    capture_s = dispatch_graph.last_capture_seconds
+    print(f"    {label}: solve phase {solve_s:.6f} s, of it the capture "
+          f"{capture_s:.6f} s, the rest {solve_s - capture_s:.6f} s")
+    return run[0]
 
 
 def _kb_path():
@@ -675,29 +806,106 @@ def _filtered_chunks():
         device_driver._filter_and_build = real
 
 
+class _Dispatch:
+    """One graphed dispatch: its key, its replays, and the lanes'
+    iterations before and after it (copies on the card, read later)."""
+
+    def __init__(self, key, steps, before, after):
+        self.key, self.steps = key, steps
+        self._before, self._after = before, after
+
+    def executed(self) -> int:
+        """Iterations the loop exit let run: the largest per-lane
+        increase (lanes only go inactive within a dispatch)."""
+        return int((self._after - self._before).max())
+
+
 @contextlib.contextmanager
 def _graph_dispatches():
-    """A list that gets the key of every dispatch that
+    """A list that gets a :class:`_Dispatch` for every dispatch that
     ``dispatch_graph.run`` replays as a CUDA graph."""
     from lara_tpu_torch.solver import dispatch_graph
 
-    keys = []
+    dispatches = []
     real = dispatch_graph.run
 
     def spy(model, carry, key, steps):
-        keys.append(key)
-        return real(model, carry, key, steps)
+        before = carry.iterations.clone()
+        out = real(model, carry, key, steps)
+        dispatches.append(_Dispatch(key, steps, before,
+                                    out.iterations.clone()))
+        return out
 
     dispatch_graph.run = spy
     try:
-        yield keys
+        yield dispatches
     finally:
         dispatch_graph.run = real
 
 
+@contextlib.contextmanager
+def _uploads():
+    """A list that gets (layout, bytes, bytes of the ten arrays) for every
+    model upload of the driver: a packed buffer (``packed15`` or
+    ``packed_seq``) or the ten arrays of ``_model_rows`` (several devices,
+    refill splices)."""
+    from lara_tpu_torch.solver import device_driver
+
+    sent = []
+    packed, raw = device_driver._packed_buffer, device_driver._upload_model
+
+    def spy_packed(models, la_max, lb_max, dcap, n, *args, **kw):
+        buf = packed(models, la_max, lb_max, dcap, n, *args, **kw)
+        sent.append((device_driver._packed_mode(la_max, lb_max, dcap),
+                     buf.numel() * buf.element_size(),
+                     _raw_bytes(la_max, lb_max, n, dcap)))
+        return buf
+
+    def spy_raw(rows, device):
+        nbytes = sum(np.asarray(x).nbytes for x in rows)
+        sent.append(("raw", nbytes, nbytes))
+        return raw(rows, device)
+
+    device_driver._packed_buffer = spy_packed
+    device_driver._upload_model = spy_raw
+    try:
+        yield sent
+    finally:
+        device_driver._packed_buffer = packed
+        device_driver._upload_model = raw
+
+
+def _raw_bytes(la_max, lb_max, lanes, dcap):
+    """Bytes of the ten arrays of a chunk (``_model_rows``): the int32
+    seq-score and bool active grids, five int32 and one bool dual column,
+    la and lb."""
+    return lanes * (5 * la_max * lb_max + 21 * dcap + 8)
+
+
+@contextlib.contextmanager
+def _loaded_as(edit):
+    """``app.load_input`` returns its records after ``edit`` changed them
+    in place (nothing where ``edit`` is None)."""
+    from lara_tpu_torch import app
+
+    real = app.load_input
+
+    def load(params):
+        store = real(params)
+        edit(store)
+        return store
+
+    if edit is not None:
+        app.load_input = load
+    try:
+        yield
+    finally:
+        app.load_input = real
+
+
 def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
                native_threads=1, same_as=None, devices=None, graphed=True,
-               **params_kw):
+               edit=None, **params_kw):
     """One run of the port's CLI path on a family (``records``, or the
     path of an input file), on ``dev`` or split over ``devices``.  The
     launch counts are set to 0 just before the run and read just after it;
@@ -708,16 +916,21 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     checked against the native C++ baseline (on ``native_threads``
     threads), or, with ``same_as`` (an earlier run's (library, results)),
     the library bytes against that library and every pair against that
-    run's.  Returns (counts, library, wall seconds, run)."""
+    run's.  ``edit`` changes the records that the run and the check read
+    (:func:`_loaded_as`).  Returns (counts, library, wall seconds, run)."""
     import torch
 
     from lara_tpu_torch import _build, app
     from lara_tpu_torch.io.writers import write_ebpseq
     from lara_tpu_torch.params import Parameters
-    from lara_tpu_torch.solver import hybrid_driver
+    from lara_tpu_torch.solver import device_driver, hybrid_driver
     from lara_tpu_torch.utils import timing
 
     env = env or {}
+    fused = "matching_rounds" in expect
+    if fused and graphed:
+        # every replay of a graphed dispatch runs the loop exit's kernel
+        expect = tuple(expect) + ("loop_exit",)
     name = f"{label} -m {matching}" + "".join(f" {k}={v}"
                                               for k, v in env.items())
     if devices:
@@ -732,9 +945,10 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
                         matching=matching, **params_kw)
     os.environ.update(env)
     try:
-        with _filtered_chunks() as chunks, _graph_dispatches() as graphs:
+        with _filtered_chunks() as chunks, _graph_dispatches() as graphs, \
+                _uploads() as uploads, _loaded_as(edit):
             _build.reset_launches()
-            hybrid_driver.turns = 0
+            hybrid_driver.turns = hybrid_driver.replays = 0
             start = time.perf_counter()
             run = app.run(params, dev, devices)
             torch.cuda.synchronize()
@@ -743,7 +957,6 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     finally:
         for key in env:
             del os.environ[key]
-    fused = "matching_rounds" in expect
     if bool(graphs) != (fused and graphed):
         raise AssertionError(f"{name}: {len(graphs)} graphed dispatches "
                              f"(fused {fused}, graphed {graphed})")
@@ -759,7 +972,8 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
                              f"sweeps and {launches['edge_pack']} packs for "
                              f"{len(chunks)} filtered chunks {chunks}")
 
-    store = app.load_input(params)
+    with _loaded_as(edit):
+        store = app.load_input(params)
     pairs = app.enumerate_pairs(store)
     iters = [r.iterations for r in run.results]
     if same_as is not None:
@@ -779,10 +993,35 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     print("    phases: " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
     if hybrid_driver.turns:
         turns = hybrid_driver.turns
+        buckets = len(device_driver.buckets_of(store, pairs))
+        if turns - hybrid_driver.replays != buckets:
+            raise AssertionError(
+                f"{name}: {hybrid_driver.replays} of {turns} device steps "
+                f"replayed a graph, expected all but the first of each of "
+                f"{buckets} bucket(s)")
         print(f"    hybrid: {turns} batched iterations, per iteration "
               f"{1e3 * phases['hybrid device step'] / turns:.3f} ms device "
-              f"step (uploads, DP, download) + "
+              f"step (uploads, DP, download; graphed: "
+              f"{hybrid_driver.replays} replays, the first step of each of "
+              f"{buckets} bucket(s) eager) + "
               f"{1e3 * phases['hybrid host step'] / turns:.3f} ms host step")
+    if graphs:
+        executed = [g.executed() for g in graphs]
+        if sum(executed) != launches["matching_rounds"] or \
+                len(graphs) + sum(executed) != launches["loop_exit"]:
+            raise AssertionError(
+                f"{name}: the dispatches ran {executed} of "
+                f"{[g.steps for g in graphs]} iterations, the counts say "
+                f"K3 {launches['matching_rounds']}, loop exit "
+                f"{launches['loop_exit']}")
+        print("    dispatches, iterations run of those dispatched: "
+              + ", ".join(f"{e}/{g.steps}"
+                          for e, g in zip(executed, graphs)))
+    if uploads:
+        print(f"    model uploads: {len(uploads)}, MB (as the ten arrays): "
+              + ", ".join(f"{kind} {b / 1e6:.3f} ({r / 1e6:.3f})"
+                          for kind, b, r in uploads[:4])
+              + (" ..." if len(uploads) > 4 else ""))
     if same_as is None:
         timed = "same pairs" if native_n == len(pairs) else \
             f"{native_n} evenly spaced pairs, run alone after the check on " \
@@ -791,7 +1030,7 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
               f"{native_s:.3f} s, {native_n / native_s:.3f} alignments/s")
     print(f"    launches: {launches}; {len(chunks)} chunk(s) filtered "
           f"({', '.join(map(str, chunks))} pairs); {len(graphs)} graphed "
-          f"dispatch(es) over {len(set(graphs))} key(s)")
+          f"dispatch(es) over {len({g.key for g in graphs})} key(s)")
     return launches, library, wall, run
 
 
@@ -912,31 +1151,56 @@ FUSED_ITERATION = ("gotoh_dp", "gotoh_tb", "matching_rounds")
 GRID_ITERATION = ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds")
 
 
+def _dispatched(longest, n_iter=500):
+    """(iterations dispatched, dispatches) for a shard whose longest lane
+    ran ``longest``: ``solve_batch``'s dispatches, as the JAX package's
+    (``lara_tpu/solver/device_solver.py:284-297``), each flag read one
+    dispatch late, so the dispatch after the one in which the last lane
+    finished is issued too."""
+    from lara_tpu_torch.solver import device_solver
+
+    chunk, total, count, pending = device_solver.dispatch_size(), 0, 0, None
+    while total < n_iter:
+        total += min(chunk, n_iter - total)
+        count += 1
+        if pending is False:
+            break
+        pending = longest > total if total < n_iter else None
+    return total, count
+
+
 def _exact_launches(name, launches, results, shards,
-                    kernels=FUSED_ITERATION):
+                    kernels=FUSED_ITERATION, graphed=True):
     """Gate: a fused run of one chunk over ``shards`` shards launched each
     of ``kernels`` (K1, K2 and K3, or K1-grid, K2-grid and K3) exactly once
-    per iteration of each shard's dispatches.  Lane k
-    holds the chunk's pair k (results in task order), the lanes pad to
-    ``device_driver._padded_batch`` and then to a multiple of the shards
-    (padding lanes converge in one iteration), and each shard runs
-    ``ceil(its longest lane / LARA_CHUNK) * LARA_CHUNK`` iterations, at most
-    500.  Returns each shard's iterations."""
-    from lara_tpu_torch.solver import device_driver, device_solver
+    per iteration the JAX ``while_loop`` would run: each shard's longest
+    lane's iterations, the loop exit ending each dispatch there; and the
+    loop exit's kernel once per dispatch (:func:`_dispatched`) and once
+    per iteration.  The eager loop on the card (``graphed`` false) runs
+    every dispatched iteration.  Lane k holds the chunk's pair k (results
+    in task order), the lanes pad to ``device_driver._padded_batch`` and
+    then to a multiple of the shards (padding lanes converge in one
+    iteration).  Returns each shard's (iterations run, iterations
+    dispatched)."""
+    from lara_tpu_torch.solver import device_driver
 
     lanes = device_driver._padded_batch(len(results), shards)
     lanes += (-lanes) % shards
     iters = [r.iterations for r in results] + [1] * (lanes - len(results))
-    per, chunk = lanes // shards, device_solver.dispatch_size()
-    ran = [min(500, -(-max(iters[k * per:(k + 1) * per]) // chunk) * chunk)
-           for k in range(shards)]
-    want = {k: sum(ran) for k in kernels}
+    per = lanes // shards
+    longest = [max(iters[k * per:(k + 1) * per]) for k in range(shards)]
+    dispatched = [_dispatched(n) for n in longest]
+    steps = [total for total, _ in dispatched]
+    want = dict.fromkeys(kernels, sum(longest if graphed else steps))
+    if graphed:
+        want["loop_exit"] = sum(count for _, count in dispatched) \
+            + sum(longest)
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"{name}: launched {got}, expected {want} "
                              f"({shards} shard(s) of {per} lanes running "
-                             f"{ran} iterations)")
-    return ran
+                             f"{longest} of {steps} iterations)")
+    return list(zip(longest, steps))
 
 
 def _sharded_path(label, records, dev, tmp, expect, one):
@@ -957,7 +1221,8 @@ def _sharded_path(label, records, dev, tmp, expect, one):
         devices = [dev, dev] if key == "two shards" else None
         walls[key].append(_main_path(label, records, dev, tmp, expect,
                                      devices=devices, same_as=same)[2])
-    print(f"    {label}: shards ran {ran} iterations; wall in turns (two, "
+    print(f"    {label}: shards ran (iterations, dispatched) {ran}; wall "
+          "in turns (two, "
           "one, one, two): " + "; ".join(
               f"{k} " + ", ".join(f"{w:.3f}" for w in v) + " s"
               for k, v in walls.items()))
@@ -1114,7 +1379,8 @@ def _chunk_batch(records, dev):
     pairs = enumerate_pairs(records)
     models, _ = device_driver._filter_and_build(
         records, pairs, params, pad, pad, dev)
-    batch, scan_steps = device_driver._pack_models(models, pad, pad, dev)
+    batch, scan_steps = device_driver._pack_models(models, params, pad, pad,
+                                                   dev)
     b, d = batch.dual_l.shape
 
     def carry0():
@@ -1153,11 +1419,14 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
     """One dispatch of ``steps`` iterations and a second one resumed from
     its carry, eager and graphed from the same starting carry: every carry
     field of both dispatches equal (zero tolerance), the two graphed
-    dispatches (the first runs one eager iteration, captures and replays
-    the rest) under ``torch.cuda.set_sync_debug_mode("error")``, and the
-    kernels ``expect`` counted exactly once per iteration, replays
-    included.  Prints the capture seconds and the peak memory of each way
-    beside ``device_driver``'s estimate of the chunk (``_chunk_est_bytes``)."""
+    dispatches (the first warms up on scratch copies where the process
+    has not run the key, captures and launches; each one launch) under
+    ``torch.cuda.set_sync_debug_mode("error")``, the kernels ``expect``
+    counted exactly once per iteration the loop exit let run (the longest
+    lane's, at most ``2 * steps``) and the loop exit's kernel once per
+    dispatch and once per iteration.  Prints the capture seconds and the
+    peak memory of each way beside ``device_driver``'s estimate of the
+    chunk (``_chunk_est_bytes``)."""
     import torch
 
     from lara_tpu_torch import _build
@@ -1185,15 +1454,16 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
             walls[way] = time.perf_counter() - start
             peaks[way] = torch.cuda.max_memory_allocated(dev) - base
             carries[way] = (one, two)
-        launches = dict(_build.launches)
         capture_s = dispatch_graph.last_capture_seconds
-        dispatch_graph.release()
+        dispatch_graph.release()  # settles the graphed launch counts
+        launches = dict(_build.launches)
     for k, (got, want) in enumerate(zip(carries["graph"], carries["eager"])):
         for field, g, w in zip(got._fields, got, want):
             if not torch.equal(g, w):
                 raise AssertionError(f"{label}: dispatch {k + 1}, {field}: "
                                      "the graph differs from the eager loop")
-    want = {name: 2 * steps for name in expect}
+    ran = [int(c.iterations.max()) for c in carries["eager"]]
+    want = dict.fromkeys(expect, ran[1]) | {"loop_exit": 2 + ran[1]}
     got = {name: n for name, n in launches.items() if n}
     if got != want:
         raise AssertionError(f"{label}: the graphed dispatches launched "
@@ -1204,7 +1474,8 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
     name = label + "".join(f" {k}={v}" for k, v in (env or {}).items())
     print(f"  {name}: B={b} D={d} {la_max}x{lb_max}, two dispatches of "
           f"{steps}: every carry field equal, no host sync in the graphed "
-          f"ones, {got}; capture {capture_s * 1e3:.3f} ms; peak memory "
+          f"ones, iterations run {ran[0]} and {ran[1] - ran[0]}, {got}; "
+          f"capture {capture_s * 1e3:.3f} ms; peak memory "
           f"eager {peaks['eager'] / 1e9:.4f} GB, graphed "
           f"{peaks['graph'] / 1e9:.4f} GB (difference "
           f"{(peaks['graph'] - peaks['eager']) / 1e9:+.4f} GB; "
@@ -1274,7 +1545,8 @@ def _turns_path(family, dev, tmp, expect, one):
     """The fused main path graphed and eager in turns (graphed, eager,
     eager, graphed), each with the bytes and pairs of ``one`` (the first
     graphed run of the family in this script) and K1, K2 and K3 exactly
-    once per iteration; prints the walls and solve phases."""
+    once per iteration run (graphed: the JAX loop's iterations; eager:
+    every dispatched one); prints the walls and solve phases."""
     from lara_tpu_torch.utils import timing
 
     label = family[0]
@@ -1285,7 +1557,8 @@ def _turns_path(family, dev, tmp, expect, one):
                 else contextlib.nullcontext():
             run = _main_path(*family, dev, tmp, expect, same_as=same,
                              graphed=way == "graphed")
-        _exact_launches(f"{label} {way}", run[0], run[3].results, 1)
+        _exact_launches(f"{label} {way}", run[0], run[3].results, 1,
+                        graphed=way == "graphed")
         walls[way].append((run[2], timing.snapshot()[
             "subgradient solve (device)"]))
     print(f"    {label}, wall (solve phase) in turns (graphed, eager, eager, "
@@ -1294,22 +1567,63 @@ def _turns_path(family, dev, tmp, expect, one):
               for k, v in walls.items()))
 
 
-def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
+def _loop_overhead(batch, how, carry0, n_iter):
+    """Device ms per iteration of the dispatch graph's loop (one launch of
+    ``n_iter`` iterations) and of its captured iteration replayed bare
+    (a graph replayed once per iteration), from the same carry, in
+    turns, CUDA events; the least of 8 each."""
+    import torch
+
+    from lara_tpu_torch.solver import dispatch_graph
+
+    (go, ge, la_max, lb_max), rest = how
+    key = dispatch_graph.key_of(batch, go, ge, la_max, lb_max, *rest)
+    (entry,) = [e for e in dispatch_graph._entries if e.key == key]
+    bare = entry.graph._graph
+    bare.instantiate()
+    times = {"loop": [], "bare": []}
+    for way in ("loop", "bare", "bare", "loop") * 2:
+        entry.load(batch, carry0())
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if way == "loop":
+            entry.counters[0].fill_(n_iter)
+            entry.graph.replay()
+        else:
+            for _ in range(n_iter):
+                bare.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times[way].append(start.elapsed_time(end) / n_iter)
+    return min(times["loop"]), min(times["bare"])
+
+
+def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
+                   walls=None):
     """Where one chunk's solve spends its time, under the switches ``env``
     (``LARA_DP_GRID=1``: K1-grid and K2-grid in place of K1 and K2), eager
-    and graphed side by side: the unprofiled wall of ``n_iter`` warm
-    iterations (graphed: replays of a graph captured before), and from
+    and graphed side by side, in two passes.  Without ``walls``, before any
+    profiler has run in the process (a profiled run leaves the card's
+    tracing on, and it slows the kernels of the WHILE node's body): the
+    unprofiled wall of ``n_iter`` warm iterations (graphed: one launch of
+    a graph captured before) and the loop exit's cost per iteration
+    (:func:`_loop_overhead`); returns the walls.  With ``walls``: from
     ``torch.profiler`` over the same iterations the device time, kernels
-    per iteration and K1/K2/K3 time.
-    The busy share divides device time by the UNPROFILED wall (the profiler
-    itself slows the host).  K3's arguments in iterations 1, 2, 3 and
-    ``n_iter`` of the first (eager) solve are kept, and K3 is held against
-    the plain version and timed on them: the solver's real queues."""
+    per iteration and K1/K2/K3 time; the busy share divides device time by
+    the unprofiled wall of the first pass (the profiler itself slows the
+    host).  K3's arguments in iterations 1, 2, 3 and ``n_iter`` of the
+    eager solve are kept, and K3 is held against the plain version and
+    timed on them: the solver's real queues."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from lara_tpu_torch.solver import dispatch_graph
 
+    names = "K1-grid/K2-grid/K3" if (env or {}).get("LARA_DP_GRID") \
+        else "K1/K2/K3"
     with _env(env):
         batch, how, carry0, _ = _chunk_batch(records, dev)
         b, d = batch.dual_l.shape
@@ -1319,26 +1633,49 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
             _dispatch(batch, carry0(), how, n_iter, eager)
             torch.cuda.synchronize()
 
+        label += "".join(f" {k}={v}" for k, v in (env or {}).items())
+        if walls is None:
+            solve(True)
+            solve(False)  # captures the graph
+            walls = {}
+            for way, eager in (("eager", True), ("graphed", False)):
+                start = time.perf_counter()
+                solve(eager)
+                walls[way] = (time.perf_counter() - start) * 1e3
+            loop_ms, bare_ms = _loop_overhead(batch, how, carry0, n_iter)
+            dispatch_graph.release()
+            print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm "
+                  "iterations, unprofiled: wall per iteration "
+                  + ", ".join(f"{way} {ms / n_iter:.3f} ms"
+                              for way, ms in walls.items())
+                  + f"; device time per iteration, the dispatch's loop "
+                  f"{loop_ms:.4f} ms, its captured iteration replayed bare "
+                  f"{bare_ms:.4f} ms (least of 8, in turns): the loop exit "
+                  f"adds {(loop_ms - bare_ms) * 1e3:.1f} us")
+            return walls
         with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
             solve(True)
         solve(False)  # captures the graph
-        lines = {}
+        profiles = {}
         for way, eager in (("eager", True), ("graphed", False)):
-            start = time.perf_counter()
-            solve(eager)
-            wall_ms = (time.perf_counter() - start) * 1e3
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 solve(eager)
-            lines[way] = (wall_ms, prof)
+            profiles[way] = prof
         dispatch_graph.release()
-    names = "K1-grid/K2-grid/K3" if (env or {}).get("LARA_DP_GRID") \
-        else "K1/K2/K3"
-    label += "".join(f" {k}={v}" for k, v in (env or {}).items())
-    print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations:")
-    for way, (wall_ms, prof) in lines.items():
+    print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations, "
+          "profiled:")
+    seen_eager = None
+    for way, prof in profiles.items():
+        wall_ms = walls[way]
         device = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_iteration = sum(e.count for e in device) / n_iter
+        if way == "eager":
+            seen_eager = per_iteration
+        missed = " (fewer kernels than the eager loop's: the profiler " \
+            "did not see every kernel of the WHILE node's body)" \
+            if way != "eager" and per_iteration < seen_eager else ""
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
         # K1 is dp_wave_kernel<false, false>, K1-grid <false, true>; K2 and
         # K2-grid are both dp_walk_kernel
@@ -1348,17 +1685,15 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None):
         # graphed: mostly the copies of the carry back into the static one
         copies = [e for e in device if "Memcpy DtoD" in e.key]
         seen = (f"device busy {busy_ms / n_iter:.3f} ms/iteration "
-                f"({busy_ms / wall_ms:.1%}), "
-                f"{sum(e.count for e in device) / n_iter:.1f} "
-                f"kernels/iteration, {names} "
+                f"({busy_ms / wall_ms:.1%} of the unprofiled wall), "
+                f"{per_iteration:.1f} kernels/iteration, {names} "
                 + " / ".join(f"{us:.1f}" for us in ours.values())
                 + " us/iteration, device-to-device copies "
                 f"{sum(e.count for e in copies) / n_iter:.1f}/iteration "
                 f"{sum(e.self_device_time_total for e in copies) / n_iter:.1f}"
-                " us/iteration") if device else \
+                " us/iteration" + missed) if device else \
             "the profiler saw no device time (not measured)"
-        print(f"    {way:8s} {wall_ms / n_iter:.3f} ms/iteration "
-              f"unprofiled, {seen}")
+        print(f"    {way:8s} {seen}")
     for k in sorted(calls):
         args = calls[k]
         _hold_matching(f"{label} iteration {k + 1}", args[:5], args[5],
@@ -1375,7 +1710,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from lara_tpu_torch import _build
-    from lara_tpu_torch.workloads import make_family, make_long_family
+    from lara_tpu_torch.workloads import (make_family, make_long_family,
+                                          without_structure)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1383,8 +1719,14 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+    driver_api = ctypes.c_int()
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(driver_api))
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"torch {torch.__version__}, CUDA runtime {torch.version.cuda} "
+          f"(torch's), driver {driver} (CUDA API {driver_api.value // 1000}."
+          f"{driver_api.value % 1000 // 10}), {torch.cuda.get_device_name(0)}")
     start = time.perf_counter()
     _build.library()
     print(f"kernel library: {_build.LIBRARY} (nvcc {_build.build_seconds():.1f}"
@@ -1432,6 +1774,8 @@ def main() -> int:
     _edge_phase(40, 333, 700, 8, dev, stats)
     # KB at the three layouts of benchmark/profile_wavefront_layout.py
     _kb_phase(dev, stats)
+    # the loop exit of a graphed dispatch
+    _loop_exit_phase(dev, stats)
 
     families = [
         ("trna-72nt", make_family(n=16)),
@@ -1452,6 +1796,9 @@ def main() -> int:
     _smem_repair_check(dev)
     for label, records in families:
         _graph_phase(label, records, dev, FUSED_ITERATION)
+    # a chunk whose lanes are all done inside its first dispatch
+    _graph_phase("trna-72nt-structure-free",
+                 without_structure(make_family(n=16)), dev, FUSED_ITERATION)
     _graph_phase(*trna, dev, GRID_ITERATION, env={"LARA_DP_GRID": "1"})
     _graph_phase(*rrna, dev, ("gotoh_resident", "matching_rounds"),
                  env={"LARA_DP_RESIDENT": "1"})
@@ -1463,6 +1810,8 @@ def main() -> int:
             one[label] = _main_path(label, records, dev, tmp, fused)
             _exact_launches(label, one[label][0], one[label][3].results, 1)
             count(one[label][0])
+        print("the loop exit on a family whose lanes converge at once:")
+        count(_structure_free_path(dev, tmp))
         print("lane refill:")
         count(_refill_path(trna, dev, tmp, fused))
         print("16S, one 1536x1536 bucket:")
@@ -1509,10 +1858,13 @@ def main() -> int:
     print(f"  kernel launches, each from the runs meant to launch it: "
           f"{launches}")
     print("where one chunk's solve spends its time, eager and graphed:")
-    for label, records in (trna, rrna):
-        _profile_phase(label, records, dev, stats)
-    _profile_phase(*long16, dev, stats)
-    _profile_phase(*trna, dev, stats, env={"LARA_DP_GRID": "1"})
+    chunks = [(trna, None), (rrna, None), (long16, None),
+              (trna, {"LARA_DP_GRID": "1"})]
+    # every unprofiled timing first: no profiler has run in this process
+    walls = [_profile_phase(*family, dev, stats, env=env)
+             for family, env in chunks]
+    for (family, env), wall in zip(chunks, walls):
+        _profile_phase(*family, dev, stats, env=env, walls=wall)
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "lara_tpu", "bench", "benchmark")
                      or m.startswith(("jax.", "lara_tpu.", "benchmark.")))
@@ -1528,8 +1880,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(s[1] for s in stats[name]),
-            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
-            "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+            "ms": _sig(ms), "plain_ms": _sig(plain_ms),
+            "bound_ms": _sig(bound_ms), "bound_by": bound_by,
             # no PyTorch call computes an affine-gap DP, its traceback, the
             # greedy lookahead matching, the edge filter or KB's chain
             "library_ms": None, "shape": shape}

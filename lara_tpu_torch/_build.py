@@ -16,7 +16,11 @@ CUDA graph runs its kernels without the wrappers: its capture runs them
 under :func:`recording`, which takes this thread's counts out of
 ``launches`` into a record, and every replay adds that record back with
 :func:`add` (:mod:`lara_tpu_torch.solver.dispatch_graph`).  So
-``launches`` says how often each kernel ran, replays included.
+``launches`` says how often each kernel ran, replays included.  Where a
+graph loops over its capture on the card (a fused dispatch's WHILE node),
+the iterations run are a count on the card: :func:`add_counted` copies it
+to the host without waiting, and :func:`settle` adds the record that many
+times once the copy has landed.
 """
 
 from __future__ import annotations
@@ -40,10 +44,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: kernel launches per kernel since the last :func:`reset_launches`
 launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
             "gotoh_grid_dp": 0, "gotoh_grid_tb": 0, "gotoh_resident": 0,
-            "edge_sweep": 0, "edge_pack": 0, "wavefront_chain": 0}
+            "edge_sweep": 0, "edge_pack": 0, "wavefront_chain": 0,
+            "loop_exit": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_unsettled = []  # (event, pinned count, record) of add_counted
 _local = threading.local()  # .record: this thread's recording() dict
 _lib = None
 _build_seconds = 0.0
@@ -59,6 +65,7 @@ class KernelLaunchError(RuntimeError):
 
 def reset_launches() -> None:
     with _count_lock:
+        _unsettled.clear()
         for name in launches:
             launches[name] = 0
 
@@ -92,6 +99,42 @@ def add(counts, times: int) -> None:
     with _count_lock:
         for name, n in counts.items():
             launches[name] += n * times
+
+
+def add_counted(counts, times) -> None:
+    """Add ``counts`` ``times`` times, where ``times`` is an int32 scalar
+    tensor: at once from the CPU; from the card, by a copy into pinned
+    memory behind an event on the current stream, added at the next
+    :func:`settle`, so that counting never waits for the card.  The
+    counts whose copies have landed are added first, so that their
+    pinned buffers go back to the allocator's cache."""
+    import torch
+
+    if not times.is_cuda:
+        add(counts, int(times))
+        return
+    _settle(wait=False)
+    host = torch.empty((), dtype=times.dtype, pin_memory=True)
+    host.copy_(times, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(times.device))
+    with _count_lock:
+        _unsettled.append((done, host, counts))
+
+
+def settle() -> None:
+    """Wait for the counts of :func:`add_counted` and add them."""
+    _settle(wait=True)
+
+
+def _settle(wait: bool) -> None:
+    with _count_lock:
+        pending = [u for u in _unsettled if wait or u[0].query()]
+        for u in pending:
+            _unsettled.remove(u)
+    for done, host, counts in pending:
+        done.synchronize()
+        add(counts, int(host))
 
 
 def build_seconds() -> float:
@@ -199,6 +242,13 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
         lib.lara_wavefront_chain.restype = i32
         lib.lara_wavefront_chain.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.lara_loop_graph.restype = i32
+        lib.lara_loop_graph.argtypes = [
+            ptr, ptr, i32, ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr)]
+        lib.lara_loop_graph_launch.restype = i32
+        lib.lara_loop_graph_launch.argtypes = [ptr, ptr]
+        lib.lara_loop_graph_free.restype = i32
+        lib.lara_loop_graph_free.argtypes = [ptr, ptr]
         lib.lara_smem_optin.restype = i32
         lib.lara_smem_optin.argtypes = [i32, ctypes.POINTER(i32)]
         lib.lara_cuda_error_string.restype = ctypes.c_char_p

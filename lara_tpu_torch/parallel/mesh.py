@@ -184,7 +184,9 @@ def solve_batch_sharded(model: device_solver.BatchModel, go, ge, step0,
     :func:`~lara_tpu_torch.solver.device_solver.solve_batch` on a thread of
     its own (under ``torch.cuda.device`` and on a stream of its own, which
     first waits for the model's upload).  The results are joined in lane
-    order on ``devices[0]``, without the padding."""
+    order on ``devices[0]``, without the padding, after each shard's
+    stream is done: ``solve_batch`` returns before its last dispatches
+    end (it reads each flag one dispatch late)."""
     devices = list(devices)
     n_dev = len(devices)
     b = model.seq_score.shape[0]
@@ -199,17 +201,28 @@ def solve_batch_sharded(model: device_solver.BatchModel, go, ge, step0,
         ready = torch.cuda.Event()
         ready.record()
 
-    def solve(k: int) -> device_solver.BatchResult:
+    def solve(k: int):
+        """(the shard's result, an event after its last launch or None)"""
         dev = devices[k]
         with _shard_stream(dev, ready):
             block = device_solver.BatchModel(*(
                 t[k * per:(k + 1) * per].to(dev, copy=True) for t in model))
-            return device_solver.solve_batch(
+            result = device_solver.solve_batch(
                 block, go, ge, step0, la_max, lb_max, num_iterations,
                 max_nondecr, lookahead, scan_steps=scan_steps)
+            done = None
+            if ready is not None:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            return result, done
 
     with ThreadPoolExecutor(max_workers=n_dev) as pool:
-        parts = list(pool.map(solve, range(n_dev)))
+        solved = list(pool.map(solve, range(n_dev)))
+    parts = [result for result, _ in solved]
+    for k, (_, done) in enumerate(solved):
+        if done is not None:
+            for dev in {devices[0], devices[k]}:
+                torch.cuda.current_stream(dev).wait_event(done)
     fields = []
     for tensors in zip(*parts):
         for t in tensors:

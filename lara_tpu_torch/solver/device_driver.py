@@ -9,6 +9,13 @@ Counterpart of :mod:`lara_tpu.solver.device_driver`, with the same knobs:
   padded :class:`~lara_tpu_torch.solver.device_solver.BatchModel`, the
   solve, one packed result download, and the host postprocessing
   (:func:`_postprocess_lane`, as the JAX driver's);
+* the upload, on one device, is one pinned int32 buffer in the JAX
+  driver's layout (``lara_tpu/solver/device_driver.py:776-806``: active
+  bits, dual columns ``packed15`` or ``packed_seq``, sequences, scale,
+  lengths), unpacked on the device (:func:`_unpack_model`), where the
+  seq-score grid is rebuilt from the sequences; several devices and the
+  lane refill's splice upload the ten arrays of :func:`_model_rows`, as
+  the JAX driver does;
 * lane refill (``LARA_REFILL=1``, cancelled by ``LARA_NO_REFILL``): a
   bucket wider than its chunk runs through one batch of lanes, and between
   dispatches every free lane takes the next waiting pair;
@@ -335,14 +342,14 @@ def _prepare_chunk(store, task: _Task, params: Parameters,
     if len(models) > 1 and _chunk_est_bytes(
             len(models), task.la_max, task.lb_max, dcap) > DEVICE_BUDGET:
         return models
-    return _prepare(task.pairs, models, task.la_max, task.lb_max, devices,
-                    dcap)
+    return _prepare(task.pairs, models, params, task.la_max, task.lb_max,
+                    devices, dcap)
 
 
-def _prepare(chunk, models, la_max: int, lb_max: int,
+def _prepare(chunk, models, params: Parameters, la_max: int, lb_max: int,
              devices: List[torch.device], dcap: int) -> _Prepared:
-    batch, scan_steps = _pack_models(models, la_max, lb_max, devices[0],
-                                     dcap, len(devices))
+    batch, scan_steps = _pack_models(models, params, la_max, lb_max,
+                                     devices[0], dcap, len(devices))
     ready = None
     if devices[0].type == "cuda":
         ready = torch.cuda.Event()
@@ -408,7 +415,7 @@ def _solve_models(chunk, models, params: Parameters, la_max: int,
         yield from _solve_models(chunk[mid:], models[mid:], params, la_max,
                                  lb_max, devices)
         return
-    prep = _prepare(chunk, models, la_max, lb_max, devices, dcap)
+    prep = _prepare(chunk, models, params, la_max, lb_max, devices, dcap)
     result = _run_solve(prep, params)
     with timing.phase("result download (host)"):
         packed, s = _download_result(result, params)
@@ -448,8 +455,8 @@ def _run_refill(store, task: _Task, params: Parameters,
     step0 = np.float32(params.step_size_factor)
     n_iter = int(params.num_iterations)
     scan_steps = _scan_steps(models, dcap)
-    model, _ = _pack_models(models[:window], la_max, lb_max, devices[0],
-                            dcap, len(devices))
+    model, _ = _pack_models(models[:window], params, la_max, lb_max,
+                            devices[0], dcap, len(devices))
     bp = _padded_batch(window, len(devices))
     carry = device_solver._init_carry(bp, dcap, la_max, step0, n_iter,
                                       devices[0])
@@ -551,30 +558,20 @@ def _filter_and_build(store, chunk, params: Parameters, la_max: int,
     return models, las
 
 
-def _model_rows(models, la_max: int, lb_max: int, dcap: int,
-                n_rows: int = 0) -> device_solver.BatchModel:
-    """The padded :class:`BatchModel` rows of ``models`` as numpy arrays,
-    ``n_rows`` of them (default one per model); rows beyond the models are
-    padding lanes, a 1x1 problem with no dual entries.  Counterpart of
-    ``lara_tpu/solver/device_driver.py:340-373``.  Flat edge ids are
-    remapped from (la, lb) to (la_max, lb_max), and every ``rev`` row is
-    an involution, identity on padding (a solver invariant)."""
-    n = n_rows or len(models)
-    seq_score = np.zeros((n, la_max, lb_max), np.int32)
-    active = np.zeros((n, la_max, lb_max), bool)
+def _dual_rows(models, lb_max: int, dcap: int, n: int):
+    """The dual columns of ``models`` padded to ``n`` rows of ``dcap``:
+    (dual_l, dual_m, sscore, rev, qrank, nd), flat edge ids remapped from
+    (la, lb) to (la_max, lb_max), every ``rev`` row an involution,
+    identity on padding (a solver invariant)."""
     dual_l = np.zeros((n, dcap), np.int32)
     dual_m = np.zeros((n, dcap), np.int32)
     sscore = np.zeros((n, dcap), np.int32)
     rev = np.broadcast_to(np.arange(dcap, dtype=np.int32), (n, dcap)).copy()
-    dvalid = np.zeros((n, dcap), bool)
     qrank = rev.copy()
-    las = np.ones(n, np.int32)
-    lbs = np.ones(n, np.int32)
+    nd = np.zeros(n, np.int32)
     for k, m in enumerate(models):
-        seq_score[k, : m.la, : m.lb] = m.seq_score
-        active[k, : m.la, : m.lb] = m.active
-        las[k], lbs[k] = m.la, m.lb
         d = len(m.dual_l)
+        nd[k] = d
         if d:
             a_ids, b_ids = np.divmod(m.dual_l, m.lb)
             dual_l[k, :d] = a_ids * lb_max + b_ids
@@ -582,13 +579,155 @@ def _model_rows(models, la_max: int, lb_max: int, dcap: int,
             dual_m[k, :d] = a_ids * lb_max + b_ids
             sscore[k, :d] = m.sscore
             rev[k, :d] = m.rev
-            dvalid[k, :d] = True
             qrank[k, :d][m.qperm] = np.arange(d, dtype=np.int32)
+    return dual_l, dual_m, sscore, rev, qrank, nd
+
+
+def _active_grid(models, la_max: int, lb_max: int, n: int) -> np.ndarray:
+    active = np.zeros((n, la_max, lb_max), bool)
+    for k, m in enumerate(models):
+        active[k, : m.la, : m.lb] = m.active
+    return active
+
+
+def _lengths(models, n: int):
+    """(la, lb) of ``n`` lanes; a padding lane is a 1x1 problem."""
+    las = np.ones(n, np.int32)
+    lbs = np.ones(n, np.int32)
+    for k, m in enumerate(models):
+        las[k], lbs[k] = m.la, m.lb
+    return las, lbs
+
+
+def _model_rows(models, la_max: int, lb_max: int, dcap: int,
+                n_rows: int = 0) -> device_solver.BatchModel:
+    """The padded :class:`BatchModel` rows of ``models`` as numpy arrays,
+    ``n_rows`` of them (default one per model); rows beyond the models are
+    padding lanes, a 1x1 problem with no dual entries.  Counterpart of
+    ``lara_tpu/solver/device_driver.py:340-373``."""
+    n = n_rows or len(models)
+    seq_score = np.zeros((n, la_max, lb_max), np.int32)
+    for k, m in enumerate(models):
+        seq_score[k, : m.la, : m.lb] = m.seq_score
+    dual_l, dual_m, sscore, rev, qrank, nd = _dual_rows(models, lb_max, dcap,
+                                                        n)
+    las, lbs = _lengths(models, n)
     ne = la_max * lb_max
     return device_solver.BatchModel(
-        seq_score=seq_score.reshape(n, ne), active=active.reshape(n, ne),
-        dual_l=dual_l, dual_m=dual_m, sscore=sscore, rev=rev, dvalid=dvalid,
+        seq_score=seq_score.reshape(n, ne),
+        active=_active_grid(models, la_max, lb_max, n).reshape(n, ne),
+        dual_l=dual_l, dual_m=dual_m, sscore=sscore, rev=rev,
+        dvalid=np.arange(dcap, dtype=np.int32)[None, :] < nd[:, None],
         qrank=qrank, la=las, lb=lbs)
+
+
+#: the two layouts of the packed upload (``lara_tpu/solver/
+#: device_driver.py:789``): ``packed15`` shares one word between the l
+#: and m ids and one between rev and qrank, where flat edge ids and dual
+#: indices fit 15 bits; ``packed_seq`` keeps five full columns
+PACKED15, PACKED_SEQ = "packed15", "packed_seq"
+
+
+def _packed_mode(la_max: int, lb_max: int, dcap: int) -> str:
+    return PACKED15 if la_max * lb_max <= 32768 and dcap <= 32768 \
+        else PACKED_SEQ
+
+
+def _packed_width(la_max: int, lb_max: int, dcap: int, mode: str) -> int:
+    """int32 words per lane of the packed buffer."""
+    nw = -(-la_max * lb_max // 32)
+    return nw + (3 if mode == PACKED15 else 5) * dcap + la_max + lb_max + 4
+
+
+def _packed_buffer(models, la_max: int, lb_max: int, dcap: int, n: int,
+                   nk: int, pin: bool = False) -> torch.Tensor:
+    """The chunk as one ``[n, width]`` int32 buffer (pinned with ``pin``),
+    word for word the JAX driver's one-device upload (``lara_tpu/solver/
+    device_driver.py:776-806``): per lane the active bits as little-endian
+    32-bit words, the dual columns of :func:`_packed_mode`'s layout, the
+    sequences padded with ``nk - 1``, the float32 scale's bits, la, lb and
+    the dual count.  Padding lanes are 1x1 problems with scale 0."""
+    mode = _packed_mode(la_max, lb_max, dcap)
+    nw = -(-la_max * lb_max // 32)
+    buf = torch.empty((n, _packed_width(la_max, lb_max, dcap, mode)),
+                      dtype=torch.int32, pin_memory=pin)
+    out = buf.numpy()
+    bits = np.packbits(_active_grid(models, la_max, lb_max, n).reshape(n, -1),
+                       axis=1, bitorder="little")
+    words = np.zeros((n, 4 * nw), np.uint8)
+    words[:, :bits.shape[1]] = bits
+    out[:, :nw] = words.view("<u4").view(np.int32)
+    dual_l, dual_m, sscore, rev, qrank, nd = _dual_rows(models, lb_max, dcap,
+                                                        n)
+    if mode == PACKED15:
+        cols = [(dual_l << 15) | dual_m, sscore, (rev << 15) | qrank]
+    else:
+        cols = [dual_l, dual_m, sscore, rev, qrank]
+    off = nw
+    for col in cols:
+        out[:, off:off + dcap] = col
+        off += dcap
+    seqs = out[:, off:off + la_max + lb_max]
+    seqs[:] = nk - 1
+    scale = np.zeros(n, np.float32)
+    for k, m in enumerate(models):
+        seqs[k, : m.la] = m.seq_a
+        seqs[k, la_max:la_max + m.lb] = m.seq_b
+        scale[k] = np.float32(m.scale)
+    off += la_max + lb_max
+    out[:, off] = scale.view(np.int32)
+    out[:, off + 1], out[:, off + 2] = _lengths(models, n)
+    out[:, off + 3] = nd
+    return buf
+
+
+def _unpack_model(buf: torch.Tensor, submat: torch.Tensor, la_max: int,
+                  lb_max: int, dcap: int) -> device_solver.BatchModel:
+    """The :class:`BatchModel` of a :func:`_packed_buffer` on its device,
+    with the fields of the JAX driver's ``_get_unpack_model``
+    (``lara_tpu/solver/device_driver.py:576-621``).  The seq-score grid is
+    an exact integer gather of ``submat`` ([nk, nk] int32) at the two
+    sequences, times the lane's float32 scale, truncated toward zero: the
+    host's ``np.trunc(np.float32(scale) * mat.astype(np.float32))`` bit
+    for bit.  Cells beyond a lane's (la, lb) hold ``submat[nk - 1, .]``
+    terms, as in the JAX package; no result reads them."""
+    n = buf.shape[0]
+    ne = la_max * lb_max
+    nw = -(-ne // 32)
+    mode = _packed_mode(la_max, lb_max, dcap)
+    dev = buf.device
+    octets = buf[:, :nw].contiguous().view(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    active = ((octets[:, :, None] >> shifts) & 1).bool().reshape(
+        n, 32 * nw)[:, :ne].contiguous()
+
+    def cols(count, off):
+        return [buf[:, off + j * dcap:off + (j + 1) * dcap].contiguous()
+                for j in range(count)]
+
+    off = nw
+    if mode == PACKED15:
+        lm, sscore, rq = cols(3, off)
+        off += 3 * dcap
+        dual_l, dual_m = lm >> 15, lm & 0x7FFF
+        rev, qrank = rq >> 15, rq & 0x7FFF
+    else:
+        dual_l, dual_m, sscore, rev, qrank = cols(5, off)
+        off += 5 * dcap
+    sa = buf[:, off:off + la_max].long()
+    sb = buf[:, off + la_max:off + la_max + lb_max].long()
+    off += la_max + lb_max
+    scale = buf[:, off].contiguous().view(torch.float32)
+    nd = buf[:, off + 3]
+    mat = submat[sa[:, :, None], sb[:, None, :]].to(torch.float32)
+    seq_score = (scale[:, None, None] * mat).to(torch.int32)
+    return device_solver.BatchModel(
+        seq_score=seq_score.reshape(n, ne), active=active, dual_l=dual_l,
+        dual_m=dual_m, sscore=sscore, rev=rev,
+        dvalid=torch.arange(dcap, dtype=torch.int32, device=dev)[None, :]
+        < nd[:, None],
+        qrank=qrank, la=buf[:, off + 1].contiguous(),
+        lb=buf[:, off + 2].contiguous())
 
 
 def _scan_steps(models, dcap: int) -> int:
@@ -610,17 +749,34 @@ def _upload_model(rows: device_solver.BatchModel, device: torch.device
         torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in rows))
 
 
-def _pack_models(models, la_max: int, lb_max: int, device: torch.device,
-                 dcap: int = 0, n_dev: int = 1):
+def _pack_models(models, params: Parameters, la_max: int, lb_max: int,
+                 device: torch.device, dcap: int = 0, n_dev: int = 1):
     """Pad the chunk's models to :func:`_padded_batch` lanes (to be split
     over ``n_dev`` devices) and upload them: (BatchModel on ``device``,
-    run-scan depth).  ``dcap`` defaults to the chunk's quantised dual
-    capacity."""
+    run-scan depth).  One device: one pinned buffer, one upload, unpacked
+    on the device; several: the ten arrays (``raw_path``,
+    ``lara_tpu/solver/device_driver.py:725``).  ``dcap`` defaults to the
+    chunk's quantised dual capacity."""
     with timing.phase("model packing (host)"):
         dcap = dcap or _chunk_dcap(models)
-        rows = _model_rows(models, la_max, lb_max, dcap,
-                           _padded_batch(len(models), n_dev))
-        return _upload_model(rows, device), _scan_steps(models, dcap)
+        n = _padded_batch(len(models), n_dev)
+        if n_dev > 1:
+            batch = _upload_model(_model_rows(models, la_max, lb_max, dcap,
+                                              n), device)
+        else:
+            submat = np.asarray(params.score_matrix, np.int32)
+            buf = _packed_buffer(models, la_max, lb_max, dcap, n,
+                                 submat.shape[0], pin=device.type == "cuda")
+            batch = _unpack_model(buf.to(device, non_blocking=True),
+                                  torch.from_numpy(submat).to(device),
+                                  la_max, lb_max, dcap)
+            if device.type == "cuda":
+                # the upload and the unpack count to this phase, as in
+                # lara_tpu/solver/device_driver.py:820 (block_until_ready)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+                done.synchronize()
+        return batch, _scan_steps(models, dcap)
 
 
 def _chunk_est_bytes(n_pairs: int, la_max: int, lb_max: int,

@@ -24,17 +24,16 @@ The run-top tie-break (``_run_top``) and the float32 dual update keep the
 reference's operation order, in eager torch.
 
 On the card one iteration holds no host synchronisation: K2 and K3 replace
-the two data-dependent loops, a dispatch runs all of its iterations (every
-carry write is masked by the lane's activity, so iterations after all lanes
-finish change nothing) and :func:`solve_batch` reads ``lane_active.any()``
-once per dispatch.  There a dispatch is one iteration captured as a CUDA
-graph and replayed once per iteration
-(:mod:`lara_tpu_torch.solver.dispatch_graph`), the counterpart of the JAX
-package's one jitted ``while_loop``; the results are those of the eager
-loop, bit for bit.  On the CPU a dispatch is the eager loop
-(:func:`_eager_dispatch`), which also stops as soon as no lane is active,
-since the read is free there.  ``LARA_CHUNK`` sets the iterations per
-dispatch (:func:`dispatch_size`).
+the two data-dependent loops.  There a dispatch is one launch of a CUDA
+graph that loops over a captured iteration while iterations are left and
+a lane is active (:mod:`lara_tpu_torch.solver.dispatch_graph`): the
+counterpart of the JAX package's one jitted ``while_loop``, with the same
+trip count, and the results of the eager loop, bit for bit.  On the CPU a dispatch is the eager
+loop (:func:`_eager_dispatch`), which stops as soon as no lane is active,
+since the read is free there.  :func:`solve_batch` reads each dispatch's
+any-lane-active flag one dispatch late, as the JAX package does: the next
+dispatch is queued before the flag comes to the host.  ``LARA_CHUNK`` sets
+the iterations per dispatch (:func:`dispatch_size`).
 
 :func:`splice_lanes` reloads lanes of a live (model, carry) with new pairs:
 the driver's lane refill.
@@ -200,22 +199,49 @@ def solve_batch(model: BatchModel, go, ge, step_factor0, la_max: int,
                 lb_max: int, num_iterations: int, max_nondecr: int,
                 lookahead: int, scan_steps: int = 0) -> BatchResult:
     """Solve in dispatches of :func:`dispatch_size` iterations; the carry
-    stays on the device between dispatches, and the any-lane-active flag is
-    read once per dispatch."""
+    stays on the device between dispatches.  Each dispatch's
+    any-lane-active flag is read after the next one is queued
+    (``lara_tpu/solver/device_solver.py:284-297``): the solve ends one
+    dispatch after the one in which the last lane finished, and that
+    dispatch runs no iteration."""
     dispatch = dispatch_size()
     b = model.seq_score.shape[0]
     d = model.dual_l.shape[1]
     carry = _init_carry(b, d, la_max, step_factor0, num_iterations,
                         model.seq_score.device)
     total = 0
+    pending = None  # the flag of the dispatch before, on its way
     while total < num_iterations:
         steps = min(dispatch, num_iterations - total)
         carry = solve_batch_chunk(model, carry, go, ge, la_max, lb_max,
                                   steps, max_nondecr, lookahead, scan_steps)
         total += steps
-        if not bool(carry.lane_active.any()):
+        if pending is not None and not pending.read():
             break
+        pending = _Flag(carry.lane_active) if total < num_iterations \
+            else None
     return _result_of(carry)
+
+
+class _Flag:
+    """``lane_active.any()`` on its way to the host: on the card, a copy
+    into pinned memory behind an event on the current stream, waited for
+    only by :meth:`read`."""
+
+    def __init__(self, lane_active: torch.Tensor):
+        self._any = lane_active.any()
+        self._done = None
+        if lane_active.is_cuda:
+            host = torch.empty((), dtype=torch.bool, pin_memory=True)
+            host.copy_(self._any, non_blocking=True)
+            self._any = host
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(lane_active.device))
+
+    def read(self) -> bool:
+        if self._done is not None:
+            self._done.synchronize()
+        return bool(self._any)
 
 
 class _Static(NamedTuple):
@@ -402,8 +428,8 @@ def _iteration(model: BatchModel, st: _Static, c: _Carry, go: int, ge: int,
 def solve_batch_chunk(model: BatchModel, carry: _Carry, go, ge, la_max: int,
                       lb_max: int, max_steps: int, max_nondecr: int,
                       lookahead: int, scan_steps: int = 0) -> _Carry:
-    """Up to ``max_steps`` iterations; resumable.  On the card, replays of
-    the iteration's CUDA graph (:mod:`~lara_tpu_torch.solver.
+    """Up to ``max_steps`` iterations; resumable.  On the card, one launch
+    of the dispatch's CUDA graph (:mod:`~lara_tpu_torch.solver.
     dispatch_graph`); on the CPU, :func:`_eager_dispatch`.
 
     ``scan_steps``: doubling passes of the per-edge run scan; 2**scan_steps

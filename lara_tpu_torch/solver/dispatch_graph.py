@@ -1,13 +1,18 @@
-"""Each dispatch of the fused solver on the card as a replayed CUDA graph.
+"""Each dispatch of the fused solver on the card as a CUDA graph.
 
 Counterpart of the JAX package's compiled dispatch: there
 ``solve_batch_chunk`` is one ``jax.jit`` program with static shape
 arguments and a donated carry, its whole loop one ``jax.lax.while_loop``
+whose ``cond`` is ``(steps_done < max_steps) & jnp.any(c.lane_active)``
 (``lara_tpu/solver/device_solver.py:301-307``, ``:629-634``).  Here one
 iteration (:func:`lara_tpu_torch.solver.device_solver._iteration`) is
-captured once per static configuration and replayed once per iteration,
-so a dispatch costs one graph launch per iteration where the eager loop
-issues ~269 kernel launches from the interpreter.
+captured once per static configuration, and a dispatch is one launch of a
+graph that loops over it on the card: the loop exit's kernel and a WHILE
+node around the captured iteration (``csrc/loop_exit.cu``), the kernel
+evaluating ``cond`` before each iteration against a count of the
+iterations left that the host sets to ``max_steps``.  So a dispatch runs
+exactly the iterations of the JAX loop, and a dispatch after the last lane
+is done costs the launch and the kernel alone.
 
 * **Key** (:func:`key_of`): the jit's static arguments, the device, B, D,
   NE, ``la_max``, ``lb_max``, ``max_nondecr``, ``lookahead``,
@@ -23,22 +28,30 @@ issues ~269 kernel launches from the interpreter.
   and the carry into the entry, each only where it is not what the entry
   last held (the same tensor objects, unmodified since, by their version
   counters; a write through a raw pointer would not be seen, and no
-  caller makes one); on the entry's first use run one real eager
-  iteration, which warms every lazy cache (the kernel library, the border
-  codes, the shared-memory opt-in) and counts as an iteration, then
-  capture; replay until the dispatch's iterations have run; return a
-  clone of the carry, which no later replay overwrites.  No host
+  caller makes one); on the entry's first use capture, after one eager
+  iteration on scratch copies of the carry where this process has not
+  yet run the key (it warms the lazy caches: the kernel library, the
+  border codes, the shared-memory opt-in; it changes nothing); set the
+  iterations left to ``max_steps``; launch the graph once; return a clone
+  of the carry, which no later dispatch overwrites.  No host
   synchronisation on the way.
 * **Launch counts**: the capture runs under
-  :func:`lara_tpu_torch._build.recording`, and every replay adds the
-  recorded launches (:func:`lara_tpu_torch._build.add`).
+  :func:`lara_tpu_torch._build.recording`; the loop exit's kernel counts
+  the iterations it lets run on the card, and
+  :func:`lara_tpu_torch._build.add_counted` adds the recorded launches,
+  and one of the loop exit's, that many times without waiting
+  (:func:`lara_tpu_torch._build.settle`, which :func:`release` calls,
+  makes them final); each launch of the graph counts the loop exit's
+  first run.
 * **Streams**: the capture runs on a side stream of the entry in
   thread-local mode (``torch.cuda.graph`` would synchronise the card and
   empty the allocator's caches under the pipeline's and the shards' other
   threads), one capture at a time; the side stream waits for the caller's
-  stream before it, the caller's waits for the side stream after.  Each
-  use of an entry waits for its last use, which may have been on another
-  thread's stream.
+  stream before it, the caller's waits for the side stream after.  The
+  WHILE node's body is that capture, cloned into it, so no second capture
+  runs.
+  Each use of an entry waits for its last use, which may have been on
+  another thread's stream.
 * **Memory**: the graph's temporaries live in its private pool.  A
   dispatch of a new key drops the idle entries of every other key on its
   card: ``device_driver`` solves each (``la_max``, ``lb_max``) bucket
@@ -48,15 +61,17 @@ issues ~269 kernel launches from the interpreter.
   (``device_driver`` calls it when its solve ends).  Dropping an entry
   waits for its last use first.
 
-A failed capture or replay raises; nothing falls back to the eager loop.
-On the CPU, :data:`Graph` does not apply and ``solve_batch_chunk`` runs
-its eager loop; the CPU tests put a stand-in in :data:`Graph` that records
-the captured callable and runs it on each replay.
+A failed capture, loop graph or launch raises; nothing falls back to the
+eager loop.  On the CPU, :data:`Graph` does not apply and
+``solve_batch_chunk`` runs its eager loop; the CPU tests put a stand-in in
+:data:`Graph` that records the captured callable and, on each replay,
+runs it as the loop on the card does.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import threading
 import time
 import weakref
@@ -87,6 +102,7 @@ class CudaGraph:
         self._device = device
         self._side = torch.cuda.Stream(device)
         self._graph = None
+        self._loop = None  # (graph, executable graph) of the loop exit
         self._done = None  # event recorded after the last use
 
     @contextlib.contextmanager
@@ -100,8 +116,15 @@ class CudaGraph:
         self._done = torch.cuda.Event()
         self._done.record(stream)
 
-    def capture(self, fn) -> None:
-        graph = torch.cuda.CUDAGraph()
+    def capture(self, fn, active=None, counters=None) -> None:
+        """Capture ``fn``.  With ``active`` (a [B] bool tensor) and
+        ``counters`` (two int32: iterations left, iterations run), both on
+        the card for the life of the graph, a replay runs ``fn`` while
+        ``active.any()`` and iterations are left, taking one from the first
+        counter and adding one to the second for each run
+        (``csrc/loop_exit.cu``)."""
+        guarded = active is not None
+        graph = torch.cuda.CUDAGraph(keep_graph=guarded)
         caller = torch.cuda.current_stream(self._device)
         with self._capture_lock:
             self._side.wait_stream(caller)
@@ -115,15 +138,33 @@ class CudaGraph:
                     raise
                 graph.capture_end()
             caller.wait_stream(self._side)
+        if guarded:
+            lib = _build.library()
+            loop, exe = ctypes.c_void_p(), ctypes.c_void_p()
+            _build.check(lib.lara_loop_graph(
+                graph.raw_cuda_graph(), active.data_ptr(), active.numel(),
+                counters.data_ptr(), ctypes.byref(loop), ctypes.byref(exe)),
+                "loop_exit")
+            self._loop = (loop, exe)
         self._graph = graph
 
     def replay(self) -> None:
-        self._graph.replay()
+        if self._loop is None:
+            self._graph.replay()
+            return
+        _build.count("loop_exit")
+        _build.check(_build.library().lara_loop_graph_launch(
+            self._loop[1], torch.cuda.current_stream(self._device)
+            .cuda_stream), "loop_exit")
 
     def close(self) -> None:
-        """Wait for the last use; then the graph and its pool may go."""
+        """Wait for the last use; then the graphs and the pool may go."""
         if self._done is not None:
             self._done.synchronize()
+        if self._loop is not None:
+            loop, self._loop = self._loop, None
+            _build.check(_build.library().lara_loop_graph_free(*loop),
+                         "loop_exit")
         self._graph = None
 
 
@@ -192,7 +233,10 @@ class _Entry:
         self.carry = device_solver._Carry(*(t.clone() for t in carry))
         self.model_seen = _seen(model)
         self.carry_seen = _seen(carry)
-        self.per_replay = None  # launches of one captured iteration
+        # iterations left in the dispatch, iterations run (loop_exit.cu)
+        self.counters = torch.zeros(2, dtype=torch.int32,
+                                    device=self.carry.lane_active.device)
+        self.per_body = None  # launches of one iteration in the loop
 
     def load(self, model, carry) -> None:
         if not _unchanged(self.model_seen, model):
@@ -209,19 +253,38 @@ class _Entry:
         if not _unchanged(self.carry_seen, carry):
             _copy_into(self.carry, carry)
 
+    def _iteration(self, carry) -> device_solver._Carry:
+        k = self.key
+        return device_solver._iteration(
+            self.model, self.st, carry, k.go, k.ge, k.la_max, k.lb_max,
+            k.max_nondecr, k.lookahead)
+
     def step(self) -> None:
         """One iteration from the static carry back into it."""
-        k = self.key
-        _copy_into(self.carry, device_solver._iteration(
-            self.model, self.st, self.carry, k.go, k.ge, k.la_max, k.lb_max,
-            k.max_nondecr, k.lookahead))
+        _copy_into(self.carry, self._iteration(self.carry))
+
+    def warm_up(self) -> None:
+        """One iteration on scratch copies of the carry, its launches not
+        counted, where this process has not run the key yet: it warms the
+        lazy caches before the capture and changes nothing, so the
+        dispatch runs only the iterations ``cond`` lets through."""
+        with _lock:
+            if self.key in _warm:
+                return
+        with _build.recording():
+            self._iteration(device_solver._Carry(*(t.clone()
+                                                   for t in self.carry)))
+        with _lock:
+            _warm.add(self.key)
 
     def capture(self) -> None:
         global last_capture_seconds
         start = time.perf_counter()
         with _build.recording() as record:
-            self.graph.capture(self.step)
-        self.per_replay = record
+            self.graph.capture(self.step, self.carry.lane_active,
+                               self.counters)
+        self.per_body = {**record,
+                         "loop_exit": record.get("loop_exit", 0) + 1}
         last_capture_seconds = time.perf_counter() - start
 
     def carry_out(self) -> device_solver._Carry:
@@ -232,6 +295,7 @@ class _Entry:
 
 _lock = threading.Lock()
 _entries: List[_Entry] = []
+_warm = set()  # the keys this process has run an iteration of
 
 
 def _acquire(key: Key, model, carry) -> _Entry:
@@ -266,7 +330,9 @@ def _give_back(entry: _Entry, ok: bool) -> None:
 
 
 def release() -> None:
-    """Drop every idle entry, and with it its graph's private pool."""
+    """Settle the launch counts of the dispatches run so far, and drop
+    every idle entry, and with it its graph's private pool."""
+    _build.settle()
     with _lock:
         idle = [e for e in _entries if not e.busy]
         for e in idle:
@@ -277,8 +343,9 @@ def release() -> None:
 
 def run(model: device_solver.BatchModel, carry: device_solver._Carry,
         key: Key, steps: int) -> device_solver._Carry:
-    """``steps`` iterations from ``carry`` as graph replays; a carry of the
-    caller's own (not the entry's) comes back."""
+    """Up to ``steps`` iterations from ``carry``, in one launch of the
+    entry's graph; a carry of the caller's own (not the entry's) comes
+    back."""
     if steps <= 0:
         return carry
     entry = _acquire(key, model, carry)
@@ -286,14 +353,13 @@ def run(model: device_solver.BatchModel, carry: device_solver._Carry,
     try:
         with entry.graph.use():
             entry.load(model, carry)
-            done = 0
-            if entry.per_replay is None:
-                entry.step()
-                done = 1
+            if entry.per_body is None:
+                entry.warm_up()
                 entry.capture()
-            for _ in range(steps - done):
-                entry.graph.replay()
-            _build.add(entry.per_replay, steps - done)
+            entry.counters[0].fill_(steps)
+            entry.counters[1].zero_()
+            entry.graph.replay()
+            _build.add_counted(entry.per_body, entry.counters[1])
             out = entry.carry_out()
         ok = True
     finally:

@@ -19,6 +19,20 @@ updates, their count, la and lb) and one packed ``[lanes, 3 + 2 * lcap]``
 int32 array comes down (upper, gap, n_lines, lines).  The device keeps the
 lanes' PSSM planes in one flat buffer of ``lanes * LA * LB + 1`` int32 whose
 last slot absorbs the unused update slots.
+
+On the card the device step is one CUDA graph per bucket, the counterpart
+of the JAX package's jitted step (``lara_tpu/solver/hybrid_driver.py:
+108-151``, keyed there by ``la_max``, ``lb_max`` and ``lanes``; here the
+bucket's step also fixes the device, the DP plan, ``go`` and ``ge``): the
+upload of the pinned rows, the sparse updates, the DP with lines, the pack
+and the download into a pinned buffer, captured after one eager turn
+(:class:`lara_tpu_torch.solver.dispatch_graph.CudaGraph`) and replayed once
+per turn.  The copies in the graph read and write the pinned buffers when
+it replays, so the native threads' rows of this turn go up, and the host
+waits on an event before it reads the result.  A full-plane upload
+(``set_plane``) stays eager, between replays, on the same stream.  The
+graph and its memory pool go when the bucket ends.  On the CPU every turn
+is eager.
 """
 
 from __future__ import annotations
@@ -30,10 +44,11 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from lara_tpu_torch import _build
 from lara_tpu_torch.native.lagrange import PairSolver
 from lara_tpu_torch.ops import gotoh_cuda
 from lara_tpu_torch.params import Parameters
-from lara_tpu_torch.solver import device_driver
+from lara_tpu_torch.solver import device_driver, dispatch_graph
 from lara_tpu_torch.solver.reference_driver import PairResult
 from lara_tpu_torch.types import PSSM_INIT
 from lara_tpu_torch.utils import log, timing
@@ -46,6 +61,8 @@ UPD_CAP = 512
 
 #: batched iterations (device step + host step) run since the last reset
 turns = 0
+#: of those, the device steps that replayed a bucket's graph
+replays = 0
 
 
 def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
@@ -63,7 +80,7 @@ def solve_all(store, pairs: Sequence[Tuple[int, int]], params: Parameters,
 
 class _DeviceStep:
     """The device side of one bucket: the flat PSSM buffer, the per-lane
-    update rows and the DP."""
+    update rows, the DP, and on the card the graph of one step."""
 
     def __init__(self, pssm_host: np.ndarray, params: Parameters,
                  device: torch.device):
@@ -76,34 +93,40 @@ class _DeviceStep:
         self.plan = gotoh_cuda.plan_for(la_max, lb_max, device)
         self.pssm = torch.from_numpy(np.concatenate(
             [pssm_host.reshape(-1), np.zeros(1, np.int32)])).to(device)
+        pinned = device.type == "cuda"
         # host row per lane: UPD_CAP indices, UPD_CAP values, count, la, lb;
-        # pinned on the card, and rewritten only after the download's sync
+        # pinned on the card, and rewritten only after the download's event
         self.host_in = torch.zeros((lanes, 2 * UPD_CAP + 3), dtype=I32,
-                                   pin_memory=device.type == "cuda")
+                                   pin_memory=pinned)
         rows = self.host_in.numpy()
         #: the native steps write a lane's sparse updates here
         self.upd_idx = rows[:, :UPD_CAP]
         self.upd_val = rows[:, UPD_CAP:2 * UPD_CAP]
         self.upd_n = rows[:, 2 * UPD_CAP]
         self._lens = rows[:, 2 * UPD_CAP + 1:]
+        self.rows = torch.zeros(self.host_in.shape, dtype=I32, device=device)
+        self.host_out = torch.zeros((lanes, 3 + 2 * self.lcap), dtype=I32,
+                                    pin_memory=pinned)
         self.seq0 = torch.zeros(self.shape, dtype=I32, device=device)
         self.lane_off = (torch.arange(lanes, dtype=I32, device=device)
                          * self.ne)[:, None]
         self.slot = torch.arange(UPD_CAP, dtype=I32, device=device)[None, :]
+        self.device = device
+        self.graph = None  # the captured step, after the first turn
+        self.per_replay = None  # its kernel launches
 
     def set_plane(self, lane: int, plane: np.ndarray) -> None:
         """Full-plane upload of one lane (after an update overflow)."""
         self.pssm[lane * self.ne:(lane + 1) * self.ne].copy_(
             torch.from_numpy(plane.reshape(-1)))
 
-    def run(self, las: np.ndarray, lbs: np.ndarray) -> np.ndarray:
-        """Apply the sparse updates, run the DP with lines on lanes of
-        lengths (las, lbs), download (upper, gap, n_lines, lines) as one
-        [lanes, 3 + 2 * lcap] array."""
+    def _step(self) -> None:
+        """``host_in`` up, the sparse updates, the DP with lines on the
+        lanes' lengths, (upper, gap, n_lines, lines) packed into
+        ``host_out``: one turn of device work, eager or captured."""
         lanes = self.shape[0]
-        self._lens[:, 0] = las
-        self._lens[:, 1] = lbs
-        rows = self.host_in.to(self.pssm.device, non_blocking=True)
+        rows = self.rows
+        rows.copy_(self.host_in, non_blocking=True)
         uidx = rows[:, :UPD_CAP]
         uval = rows[:, UPD_CAP:2 * UPD_CAP]
         count = rows[:, 2 * UPD_CAP]
@@ -116,10 +139,42 @@ class _DeviceStep:
             rows[:, -2].contiguous(), rows[:, -1].contiguous(), self.go,
             self.ge, self.shape[1], self.shape[2], self.seq0,
             emit_lines=True, plan=self.plan)
-        packed = torch.cat([tb.upper[:, None], tb.gap_score[:, None],
-                            tb.n_lines[:, None],
-                            tb.lines.reshape(lanes, 2 * self.lcap)], dim=1)
-        return packed.cpu().numpy()
+        self.host_out.copy_(torch.cat(
+            [tb.upper[:, None], tb.gap_score[:, None], tb.n_lines[:, None],
+             tb.lines.reshape(lanes, 2 * self.lcap)], dim=1),
+            non_blocking=True)
+
+    def run(self, las: np.ndarray, lbs: np.ndarray) -> np.ndarray:
+        """Apply the sparse updates, run the DP with lines on lanes of
+        lengths (las, lbs), download (upper, gap, n_lines, lines) as one
+        [lanes, 3 + 2 * lcap] array: the graph's replay where it was
+        captured, else an eager step, after which the card captures it."""
+        global replays
+        self._lens[:, 0] = las
+        self._lens[:, 1] = lbs
+        if self.graph is not None:
+            with self.graph.use():
+                self.graph.replay()
+            _build.add(self.per_replay, 1)
+            replays += 1
+        else:
+            self._step()
+            if dispatch_graph.Graph.applies(self.device):
+                self.graph = dispatch_graph.Graph(self.device)
+                with _build.recording() as record:
+                    self.graph.capture(self._step)
+                self.per_replay = record
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        return self.host_out.numpy().copy()
+
+    def close(self) -> None:
+        """Drop the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
 
 
 def _solve_bucket(store, bucket_pairs, params: Parameters, la_max: int,
@@ -224,6 +279,7 @@ def _solve_bucket(store, bucket_pairs, params: Parameters, la_max: int,
                 fill_lane(k)  # work stealing: refill at once
     finally:
         pool.shutdown(wait=False)
+        step.close()
         for slot in slots:
             if slot is not None:
                 slot[1].close()

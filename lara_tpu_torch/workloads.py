@@ -5,10 +5,13 @@ Copies of ``bench.py``'s ``make_family``, ``make_long_family`` and
 ``_full_depth_ok`` (``bench.py:39,71,115``) on the port's own records and
 structure predictor, so that the port's scripts import neither ``bench``
 nor ``lara_tpu``; ``tests/test_torch_standalone.py`` holds them equal.
+:func:`without_structure` is the port's own: the structure-free family of
+``benchmark/PROFILE.md:208-212``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -88,6 +91,14 @@ def make_long_family(n=2, length=1530, seed=47, mutations=None):
         records.append(RnaRecord(name=f"long{k}", sequence="".join(s),
                                  bpp_edges=edges))
     return records
+
+
+def without_structure(records):
+    """Copies of ``records`` with their base-pair edges removed: the
+    structure-free family (``benchmark/PROFILE.md:208-212``), whose pairs
+    have no dual entry, so every lane's bounds meet in its first
+    iteration."""
+    return [dataclasses.replace(r, bpp_edges=[]) for r in records]
 
 
 def full_depth_ok(dev, columns, best_lower, best_upper, iterations):

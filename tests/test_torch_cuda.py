@@ -335,7 +335,8 @@ def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
     launched = {k for k, n in _build.launches.items() if n}
     kernels = kernels | {"edge_sweep", "edge_pack"}
     if matching:
-        kernels = kernels | {"matching_rounds"}
+        # the fused path: its dispatches replay graphs behind the loop exit
+        kernels = kernels | {"matching_rounds", "loop_exit"}
     assert launched == kernels
     assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] == 1
     assert max(r[-1] for r in on_card) > 1
@@ -482,7 +483,8 @@ def test_matching_kernel_on_solver_inputs(cuda):
     pad = device_driver._pad_dim(max(len(r.sequence) for r in records))
     models, _ = device_driver._filter_and_build(
         records, enumerate_pairs(records), params, pad, pad, cuda)
-    batch, scan_steps = device_driver._pack_models(models, pad, pad, cuda)
+    batch, scan_steps = device_driver._pack_models(models, params, pad, pad,
+                                                   cuda)
     b, d = batch.dual_l.shape
     carry = device_solver._init_carry(
         b, d, pad, np.float32(params.step_size_factor),
@@ -687,7 +689,8 @@ def test_refill_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
     _build.reset_launches()
     on_card = _solve_library(path, cuda, num_iterations=60)
     assert {k for k, n in _build.launches.items() if n} == {
-        "gotoh_dp", "gotoh_tb", "matching_rounds", "edge_sweep", "edge_pack"}
+        "gotoh_dp", "gotoh_tb", "matching_rounds", "edge_sweep", "edge_pack",
+        "loop_exit"}
     assert sum(windows) == 15 and len(windows) > 1
     assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] \
         == len(windows)
@@ -775,8 +778,9 @@ def test_require_refuses_another_current_card(cuda, monkeypatch):
 def test_sharded_solve_on_one_card_matches_one_device(cuda, tmp_path):
     """The lanes of a batch split over ``[cuda:0, cuda:0]`` (two shards,
     each on its own thread and stream) give every field of the one-device
-    solve, with K1, K2 and K3 launched once per iteration in each shard's
-    dispatches; the CLI path over two shards writes the CPU's bytes."""
+    solve, with K1, K2 and K3 launched once per iteration that each
+    shard's loop exit let run (its longest lane's); the CLI path over two
+    shards writes the CPU's bytes."""
     from lara_tpu_torch import app
     from lara_tpu_torch.app import enumerate_pairs
     from lara_tpu_torch.io.records import InputStorage
@@ -790,7 +794,8 @@ def test_sharded_solve_on_one_card_matches_one_device(cuda, tmp_path):
     pairs = enumerate_pairs(records)
     models, _ = device_driver._filter_and_build(records, pairs, params, 32,
                                                 32, cuda)
-    batch, scan_steps = device_driver._pack_models(models, 32, 32, cuda)
+    batch, scan_steps = device_driver._pack_models(models, params, 32, 32,
+                                                   cuda)
     args = (batch, int(params.gap_open_int), int(params.gap_extend_int),
             np.float32(params.step_size_factor), 32, 32, 60,
             int(params.max_nondecr_iterations), 5)
@@ -802,10 +807,9 @@ def test_sharded_solve_on_one_card_matches_one_device(cuda, tmp_path):
         assert got.device == cuda, name
         _int_equal(got, want, name)
     half = batch.la.shape[0] // 2
-    chunk = device_solver.dispatch_size()
     iters = one.iterations.cpu().numpy()
-    want = sum(min(60, -(-int(iters[k:k + half].max()) // chunk) * chunk)
-               for k in (0, half))
+    want = sum(int(iters[k:k + half].max()) for k in (0, half))
+    _build.settle()
     assert _build.launches["gotoh_dp"] == want
     assert _build.launches["matching_rounds"] == want
     cpu_lib = _solve_library(path, torch.device("cpu"), num_iterations=60)
@@ -853,11 +857,13 @@ def test_wavefront_chain_refuses_what_it_cannot_run(rows, cols, cuda):
 
 
 def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
-    """``solve_batch_chunk`` on the card (a CUDA graph of one iteration,
-    replayed) against the eager loop: dispatches of 7 and then 5
-    iterations from the same carry give every carry field of the eager
-    ones, with no host sync in the graphed dispatches, one capture, and
-    K1, K2 and K3 counted 12 times each, replays included."""
+    """``solve_batch_chunk`` on the card (one launch of a graph that loops
+    over a captured iteration behind the loop exit) against the eager
+    loop: dispatches of 7 and then 5 iterations from the same carry give
+    every carry field of the eager ones, with no host sync in the graphed
+    dispatches, one capture, K1, K2 and K3 once per iteration the loop
+    exit let run, as many as the longest lane ran, and the loop exit's
+    kernel once per dispatch and once per iteration."""
     from lara_tpu_torch.app import enumerate_pairs
     from lara_tpu_torch.io.records import InputStorage
     from lara_tpu_torch.params import Parameters
@@ -869,7 +875,8 @@ def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
     params = Parameters(in_file=path, num_iterations=60)
     models, _ = device_driver._filter_and_build(
         records, enumerate_pairs(records), params, 32, 32, cuda)
-    batch, scan_steps = device_driver._pack_models(models, 32, 32, cuda)
+    batch, scan_steps = device_driver._pack_models(models, params, 32, 32,
+                                                   cuda)
     b, d = batch.dual_l.shape
     args = (int(params.gap_open_int), int(params.gap_extend_int), 32, 32)
     rest = (int(params.max_nondecr_iterations), 5, scan_steps)
@@ -893,9 +900,169 @@ def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
         for name, x, y in zip(device_solver._Carry._fields, g, w):
             _int_equal(x, y, name)
     assert len(dispatch_graph._entries) == 1
-    assert {k: n for k, n in _build.launches.items() if n} == {
-        "gotoh_dp": 12, "gotoh_tb": 12, "matching_rounds": 12}
     dispatch_graph.release()
+    ran = int(want[1].iterations.max())
+    assert 0 < ran <= 12
+    assert {k: n for k, n in _build.launches.items() if n} == {
+        "gotoh_dp": ran, "gotoh_tb": ran, "matching_rounds": ran,
+        "loop_exit": 2 + ran}
+
+
+def test_loop_exit_skips_after_the_last_lane_on_card(cuda):
+    """The structure-free tRNA chunk (``make_family(n=4)`` without its
+    base-pair edges: 6 pairs, every lane done in its first iteration): a
+    graphed dispatch of 125 runs one iteration, the loop exit's kernel
+    twice, and gives the eager loop's carry; ``solve_batch`` ends after the
+    late dispatch."""
+    from lara_tpu_torch.app import enumerate_pairs
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.solver import (device_driver, device_solver,
+                                       dispatch_graph)
+    from lara_tpu_torch.workloads import make_family, without_structure
+
+    records = without_structure(make_family(n=4))
+    params = Parameters(in_file="<test>")
+    models, _ = device_driver._filter_and_build(
+        records, enumerate_pairs(records), params, 96, 96, cuda)
+    batch, scan_steps = device_driver._pack_models(models, params, 96, 96,
+                                                   cuda)
+    b, d = batch.dual_l.shape
+    args = (int(params.gap_open_int), int(params.gap_extend_int), 96, 96,
+            125, int(params.max_nondecr_iterations), 5, scan_steps)
+
+    def carry0():
+        return device_solver._init_carry(
+            b, d, 96, np.float32(params.step_size_factor), 500, cuda)
+
+    want = device_solver._eager_dispatch(batch, carry0(), *args)
+    dispatch_graph.release()
+    _build.reset_launches()
+    got = device_solver.solve_batch_chunk(batch, carry0(), *args)
+    dispatch_graph.release()
+    for name, x, y in zip(device_solver._Carry._fields, got, want):
+        _int_equal(x, y, name)
+    assert int(got.iterations.max()) == 1
+    assert {k: n for k, n in _build.launches.items() if n} == {
+        "gotoh_dp": 1, "gotoh_tb": 1, "matching_rounds": 1,
+        "loop_exit": 2}
+    steps = []
+    real = device_solver.solve_batch_chunk
+
+    def spy(model, carry, go, ge, la, lb, max_steps, *rest):
+        steps.append(max_steps)
+        return real(model, carry, go, ge, la, lb, max_steps, *rest)
+
+    device_solver.solve_batch_chunk = spy
+    try:
+        res = device_solver.solve_batch(
+            batch, args[0], args[1], np.float32(params.step_size_factor),
+            96, 96, 500, args[5], 5, scan_steps=scan_steps)
+    finally:
+        device_solver.solve_batch_chunk = real
+    dispatch_graph.release()
+    assert steps == [125, 125]
+    _int_equal(res.best_upper, want.best_upper, "best_upper")
+
+
+class _Eager:
+    """A graph class that applies nowhere: the hybrid step stays eager."""
+
+    @staticmethod
+    def applies(device):
+        return False
+
+
+@pytest.mark.parametrize("switch", [None, "LARA_DP_GRID",
+                                    "LARA_DP_RESIDENT"])
+def test_hybrid_step_graph_matches_eager_on_card(cuda, monkeypatch, switch):
+    """The hybrid's device step captured on the card (after one eager
+    turn) and replayed: six turns of sparse updates on four 96x96 lanes,
+    with full-plane uploads between some of them, give the eager step's
+    downloads and PSSM planes, under each DP plan, with the plan's kernels
+    counted once per turn."""
+    from lara_tpu_torch.params import Parameters
+    from lara_tpu_torch.solver import dispatch_graph, hybrid_driver
+
+    if switch:
+        monkeypatch.setenv(switch, "1")
+    rng = np.random.default_rng(19)
+    lanes, n, cap = 4, 96, hybrid_driver.UPD_CAP
+    pssm = rng.integers(-5000, 9000, (lanes, n, n)).astype(np.int32)
+    params = Parameters(in_file="<test>")
+    turns = []
+    for t in range(6):
+        counts = rng.integers(0, 60, lanes).astype(np.int32)
+        idx = np.zeros((lanes, cap), np.int32)
+        val = np.zeros((lanes, cap), np.int32)
+        for k in range(lanes):
+            idx[k, :counts[k]] = rng.choice(n * n, counts[k], replace=False)
+            val[k, :counts[k]] = rng.integers(-3000, 9000, counts[k])
+        planes = {int(k): rng.integers(-5000, 9000, (n, n)).astype(np.int32)
+                  for k in rng.choice(lanes, t % 2)}
+        turns.append((rng.integers(60, n + 1, lanes).astype(np.int32),
+                      rng.integers(60, n + 1, lanes).astype(np.int32),
+                      idx, val, counts, planes))
+
+    def run(step):
+        outs = []
+        for las, lbs, idx, val, counts, planes in turns:
+            for k, plane in planes.items():
+                step.set_plane(k, plane)
+            step.upd_idx[:] = idx
+            step.upd_val[:] = val
+            step.upd_n[:] = counts
+            outs.append(step.run(las, lbs))
+        return outs
+
+    monkeypatch.setattr(dispatch_graph, "Graph", _Eager)
+    eager = hybrid_driver._DeviceStep(pssm.copy(), params, cuda)
+    want = run(eager)
+    monkeypatch.setattr(dispatch_graph, "Graph", dispatch_graph.CudaGraph)
+    step = hybrid_driver._DeviceStep(pssm.copy(), params, cuda)
+    _build.reset_launches()
+    got = run(step)
+    assert step.graph is not None
+    launched = {k: v for k, v in _build.launches.items() if v}
+    assert launched and set(launched.values()) == {6}, launched
+    for t, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"turn {t}")
+    _int_equal(step.pssm, eager.pssm, "pssm")
+    step.close()
+
+
+@pytest.mark.parametrize("la_max,lb_max", [(96, 96), (200, 200), (33, 20)])
+def test_packed_upload_on_card_matches_cpu(cuda, la_max, lb_max):
+    """The packed model (``packed15`` at 96x96, ``packed_seq`` at 200x200,
+    a grid off the 32-cell word grid at 33x20) unpacked on the card equals
+    its unpack on the CPU, every field, the seq-score grid included."""
+    from lara_tpu_torch.solver import device_driver, device_solver
+
+    rng = np.random.default_rng(la_max)
+
+    class Model:
+        la, lb = la_max - 3, lb_max - 5
+        active = rng.random((la_max - 3, lb_max - 5)) < 0.3
+        d = 40
+        dual_l = np.sort(rng.choice(la * lb, d)).astype(np.int32)
+        dual_m = rng.choice(la * lb, d).astype(np.int32)
+        sscore = rng.integers(0, 900, d).astype(np.int32)
+        rev = np.arange(d, dtype=np.int32)[::-1].copy()
+        qperm = rng.permutation(d).astype(np.int32)
+        seq_a = rng.integers(0, 5, la).astype(np.int32)
+        seq_b = rng.integers(0, 5, lb).astype(np.int32)
+        scale = 1.37
+
+    submat = (np.arange(25, dtype=np.int32).reshape(5, 5) * 37 - 400)
+    buf = device_driver._packed_buffer([Model], la_max, lb_max, 512, 2, 5,
+                                       pin=True)
+    want = device_driver._unpack_model(buf, torch.from_numpy(submat),
+                                       la_max, lb_max, 512)
+    got = device_driver._unpack_model(buf.to(cuda, non_blocking=True),
+                                      torch.from_numpy(submat).to(cuda),
+                                      la_max, lb_max, 512)
+    for name, g, w in zip(device_solver.BatchModel._fields, got, want):
+        assert g.device == cuda and g.is_contiguous(), name
+        _int_equal(g.cpu(), w, name)
 
 
 def test_k1_graph_replays_after_a_smaller_launch(cuda):

@@ -4,9 +4,13 @@ On the card ``solve_batch_chunk`` captures one solver iteration as a CUDA
 graph, once per static configuration, and replays it once per iteration.
 On the CPU these tests run that code with the CUDA graph object alone
 replaced: :class:`RecordingGraph` records the captured callable without
-running it and runs it on each replay.  The key, the cache, the eager first
-iteration, the copy-in of model and carry, the replay count, the copy-out
-and the launch bookkeeping are the card's code.  The same numpy batch
+running it and runs it on each replay.  A replay
+is the card's loop: while iterations are left and the captured predicate,
+``lane_active.any()``, holds, it runs the body, counting it as the loop
+exit's kernel (``csrc/loop_exit.cu``) does on the card.  The key, the
+cache, the warm-up on scratch copies, the copy-in of model and carry, the
+iteration budget, the copy-out and the launch bookkeeping are the card's
+code.  The same numpy batch
 (``__graft_entry__._example_batch``) goes through the JAX package's
 ``solve_batch_chunk``, the port's eager loop and the graph; every carry
 field must be equal (zero tolerance).
@@ -45,7 +49,10 @@ KNOBS = ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_DCHUNK", "LARA_SOLVER",
 
 class RecordingGraph:
     """Stand-in for :class:`dispatch_graph.CudaGraph`: ``capture`` records
-    the callable without running it, ``replay`` runs it."""
+    the callable and its predicate without running them; ``replay`` runs
+    the callable once, or with a predicate, as the card's loop does, while
+    iterations are left (``counters[0]``) and the predicate holds, counting
+    each run in ``counters[1]``."""
 
     captures = 0
     closed = 0
@@ -55,26 +62,45 @@ class RecordingGraph:
         return True
 
     def __init__(self, device):
-        self.fn = None
+        self.fn = self.active = self.counters = None
         self.replays = 0
+        self.executed = 0
 
     def use(self):
         return contextlib.nullcontext()
 
-    def capture(self, fn):
+    def capture(self, fn, active=None, counters=None):
         type(self).captures += 1
-        self.fn = fn
+        self.fn, self.active, self.counters = fn, active, counters
+
+    def _go(self):
+        left, ran = self.counters
+        if int(left) <= 0 or not bool(self.active.any()):
+            return False
+        left -= 1
+        ran += 1
+        return True
 
     def replay(self):
+        if self.active is not None:
+            _build.count("loop_exit")  # as CudaGraph.replay counts it
+        self._loop()
+
+    def _loop(self):
         self.replays += 1
-        self.fn()
+        if self.active is None:
+            self.fn()
+            return
+        while self._go():
+            self.executed += 1
+            self.fn()
 
     def close(self):
         type(self).closed += 1
 
 
 class FailingGraph(RecordingGraph):
-    def capture(self, fn):
+    def capture(self, fn, active=None, counters=None):
         raise RuntimeError("capture refused")
 
 
@@ -121,8 +147,9 @@ def _assert_carry_equal(got, want):
 
 @pytest.mark.parametrize("steps", [1, 7, 20])
 def test_graph_carry_matches_jax_and_eager(batch, graph, steps):
-    """One dispatch of 1, 7 and 20 iterations: the first eager, then a
-    capture, then ``steps - 1`` replays."""
+    """One dispatch of 1, 7 and 20 iterations: a warm-up on scratch
+    copies, a capture, then one replay, which runs the iterations the
+    predicate lets through."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     want = jax_solver.solve_batch_chunk(
@@ -136,7 +163,8 @@ def test_graph_carry_matches_jax_and_eager(batch, graph, steps):
                                     eager=True))
     assert graph.captures == 1
     (entry,) = dispatch_graph._entries
-    assert entry.graph.replays == steps - 1
+    assert entry.graph.replays == 1
+    assert entry.graph.executed == int(got.iterations.max())
     # the carry that comes back is the caller's, not the entry's
     assert all(o.data_ptr() != s.data_ptr()
                for o, s in zip(got, entry.carry))
@@ -144,7 +172,8 @@ def test_graph_carry_matches_jax_and_eager(batch, graph, steps):
 
 def test_graph_resumes_across_dispatches(batch, graph):
     """Dispatches of 4 and 3 iterations equal one of 7: the second reuses
-    the graph (no capture, 3 replays) and the carry the first returned."""
+    the graph (no capture, a second replay) and the carry the first
+    returned."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     tmodel = convert.model_to_torch(model, CPU)
@@ -153,7 +182,7 @@ def test_graph_resumes_across_dispatches(batch, graph):
     twice = _chunk(tmodel, first, 3, go, ge)
     _assert_carry_equal(twice, once)
     (entry,) = dispatch_graph._entries
-    assert graph.captures == 1 and entry.graph.replays == 3 + 3
+    assert graph.captures == 1 and entry.graph.replays == 2
     # a dispatch from another carry on the same model reloads the carry
     again = _chunk(tmodel, _carry0(b, d), 7, go, ge)
     _assert_carry_equal(again, once)
@@ -183,7 +212,7 @@ def test_graph_refill_matches_eager(batch, graph):
 
     _assert_carry_equal(refill(False), refill(True))
     (entry,) = dispatch_graph._entries
-    assert graph.captures == 1 and entry.graph.replays == 4 + 6
+    assert graph.captures == 1 and entry.graph.replays == 2
     assert torch.equal(entry.model.la,
                        torch.from_numpy(model.la)[[0, 2, 2, 0]])
 
@@ -283,36 +312,48 @@ def _count_kernels(monkeypatch):
 
 def test_launch_counts_are_iterations_times_kernels(batch, graph,
                                                     monkeypatch):
-    """``_build.launches`` after dispatches of 7 and 5 iterations: 12 of
-    each of K1, K2 and K3."""
+    """``_build.launches`` after dispatches of 7 and 5 iterations: K1, K2
+    and K3 once per executed iteration, as many as the longest lane ran
+    (the batch converges in its first: 1 of the 12 dispatched)."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     tmodel = convert.model_to_torch(model, CPU)
     _count_kernels(monkeypatch)
     _build.reset_launches()
-    _chunk(tmodel, _chunk(tmodel, _carry0(b, d), 7, go, ge), 5, go, ge)
+    out = _chunk(tmodel, _chunk(tmodel, _carry0(b, d), 7, go, ge), 5, go, ge)
+    ran = int(out.iterations.max())
+    (entry,) = dispatch_graph._entries
+    assert ran == entry.graph.executed == 1 and entry.graph.replays == 2
+    # the loop exit: once per dispatch, and after each iteration
     assert {k: n for k, n in _build.launches.items() if n} == {
-        "gotoh_dp": 12, "gotoh_tb": 12, "matching_rounds": 12}
+        "gotoh_dp": ran, "gotoh_tb": ran, "matching_rounds": ran,
+        "loop_exit": 2 + ran}
 
 
 class CardCountGraph(RecordingGraph):
     """Counts as on the card: the capture runs the callable's Python once
     (on the card it enqueues nothing; here it computes, so this stand-in's
-    carries are not compared), and a replay runs no wrapper's count."""
+    carries are not compared, and its predicate is put back as it was),
+    and a replay runs no wrapper's count."""
 
-    def capture(self, fn):
-        super().capture(fn)
+    def capture(self, fn, active=None, counters=None):
+        super().capture(fn, active, counters)
+        before = active.clone()
         fn()
+        active.copy_(before)
 
     def replay(self):
+        _build.count("loop_exit")
         with _build.recording():
-            super().replay()
+            self._loop()
 
 
 def test_capture_launches_are_added_per_replay(batch, monkeypatch):
     """The card's bookkeeping: the capture's launches are taken out of
-    ``launches`` and added once per replay, so the count is again the
-    iterations run times the kernels per iteration."""
+    ``launches`` and added once per iteration the loop exit let run (the
+    count on the card, settled by ``release``), so the count is again the
+    executed iterations times the kernels per iteration; the loop exit's
+    kernel counts once per dispatch and once per iteration."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     monkeypatch.setattr(dispatch_graph, "Graph", CardCountGraph)
@@ -321,10 +362,12 @@ def test_capture_launches_are_added_per_replay(batch, monkeypatch):
     tmodel = convert.model_to_torch(model, CPU)
     _chunk(tmodel, _chunk(tmodel, _carry0(b, d), 7, go, ge), 5, go, ge)
     (entry,) = dispatch_graph._entries
-    assert entry.per_replay == {"gotoh_dp": 1, "gotoh_tb": 1,
-                                "matching_rounds": 1}
+    assert entry.per_body == {"gotoh_dp": 1, "gotoh_tb": 1,
+                              "matching_rounds": 1, "loop_exit": 1}
+    assert entry.graph.replays == 2 and entry.graph.executed == 1
+    dispatch_graph.release()
     assert {k: n for k, n in _build.launches.items() if n} == {
-        "gotoh_dp": 12, "gotoh_tb": 12, "matching_rounds": 12}
+        "gotoh_dp": 1, "gotoh_tb": 1, "matching_rounds": 1, "loop_exit": 3}
 
 
 def test_recording_is_per_thread():
