@@ -33,7 +33,11 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    INT32_MAX, timed at reps 5 beside its bound and at the source's 3600;
    the loop exit (``csrc/loop_exit.cu``, the JAX ``while_loop``'s
    ``cond`` on the card) against ``any()`` and the iteration budget at 128
-   and 32 lanes, a turn of its loop and an idle dispatch timed;
+   and 32 lanes, a turn of its loop and an idle dispatch timed; KI-head,
+   KI-lines and KI-tail (``csrc/iteration.cu``, the fused solver's
+   iteration body around the DP and K3) on the tRNA, ~300 nt and 16S
+   chunks' models with random carries, every output and the PSSM grid's
+   start cells against the plain versions;
    then the dispatch graph (``lara_tpu_torch.solver.dispatch_graph``: on
    the card every ``solve_batch_chunk`` is one launch of a graph whose
    WHILE node loops over a captured iteration while a lane is active)
@@ -73,7 +77,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    filtered (a spy on ``device_driver._filter_and_build`` counts them),
    and the fused runs of one chunk K1 + K2 + K3 (under ``LARA_DP_GRID=1``
    K1-grid + K2-grid + K3) exactly once per iteration of the JAX loop
-   (the longest lane's), the loop exit once per dispatch and iteration;
+   (the longest lane's), and KI-head, KI-lines and KI-tail with them, the
+   loop exit once per dispatch and iteration;
    each run prints its model uploads (layout, bytes, and the ten arrays'
    bytes), each dispatch's iterations run, and the hybrid's graph
    replays.
@@ -100,12 +105,16 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    the tRNA chunk under ``LARA_DP_GRID=1``, eager and graphed side by
    side: first, before any profiler runs, the unprofiled wall per
    iteration and the device time per iteration of the dispatch's loop
-   beside its captured iteration replayed bare (the loop exit's cost);
-   then from ``torch.profiler`` the device busy share, kernels per
-   iteration and the K1/K2/K3 (K1-grid/K2-grid/K3) time; K3 is held
-   against the plain version, and timed, on the solver's own arguments of
-   iterations 1-3 and 25 (of the eager loop, whose iterations call the
-   wrappers).
+   beside its captured iteration replayed bare (the loop exit's cost),
+   and the device operations the captured iteration holds (its nodes,
+   from the driver API; at most 12 on the default fused path); then from
+   ``torch.profiler`` the device busy share, kernels per iteration and the
+   K1/K2/K3 (K1-grid/K2-grid/K3) and KI-head/KI-lines/KI-tail time, and
+   the device time and operations of one iteration by section of the body
+   (the ``lara.*`` ranges, over eager steps of a graph entry); K3 and the
+   body's three kernels are held against their plain versions, and
+   timed, on the solver's own arguments of iterations 1-3 and 25 (of the
+   eager loop, whose iterations call the wrappers).
 
 It then checks that neither JAX nor any module of the JAX package (nor
 ``bench``, nor the repository's ``benchmark``) was loaded, prints a
@@ -158,7 +167,19 @@ KERNELS = {
     # and once per iteration
     "loop_exit": ("lara_tpu_torch/csrc/loop_exit.cu",
                   "lara_tpu/solver/device_solver.py:629"),
+    # the iteration body around the DP and K3: not Pallas on the TPU but
+    # the XLA fusions of the while_loop's body, section by section (queue
+    # top and PSSM :452-506; slots, lines, subgradients, consistent branch,
+    # candidates :514-582; best primal, bounds, dual update :583-628)
+    "iteration_head": ("lara_tpu_torch/csrc/iteration.cu",
+                       "lara_tpu/solver/device_solver.py:452"),
+    "iteration_lines": ("lara_tpu_torch/csrc/iteration.cu",
+                        "lara_tpu/solver/device_solver.py:514"),
+    "iteration_tail": ("lara_tpu_torch/csrc/iteration.cu",
+                       "lara_tpu/solver/device_solver.py:583"),
 }
+#: the iteration body's kernels, once per iteration of every fused path
+BODY = ("iteration_head", "iteration_lines", "iteration_tail")
 #: K4's kernels, launched once per chunk on every path
 K4 = ("edge_sweep", "edge_pack")
 ALSO_REPLACES = {"gotoh_resident": "lara_tpu/ops/gotoh_pallas.py:550"}
@@ -1147,8 +1168,9 @@ def _mixed_path(family, dev, tmp, expect):
 
 #: the fused path's DP and matching kernels, by default and under
 #: ``LARA_DP_GRID=1``
-FUSED_ITERATION = ("gotoh_dp", "gotoh_tb", "matching_rounds")
-GRID_ITERATION = ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds")
+FUSED_ITERATION = ("gotoh_dp", "gotoh_tb", "matching_rounds") + BODY
+GRID_ITERATION = ("gotoh_grid_dp", "gotoh_grid_tb", "matching_rounds") \
+    + BODY
 
 
 def _dispatched(longest, n_iter=500):
@@ -1339,6 +1361,208 @@ def _quality_path(dev, tmp, expect):
               f"run: SPS {RESULTS_MD[family][0]:.4f}, MCC "
               f"{RESULTS_MD[family][1]:.4f}")
     return total
+
+
+def _cloned(x):
+    """A copy of ``x`` whose tensors (also inside tuples and lists, but not
+    a model's) are clones."""
+    import torch
+
+    from lara_tpu_torch.solver.device_solver import BatchModel
+
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, BatchModel):  # no iteration writes the model
+        return x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cloned(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def _body_calls(keep):
+    """A dict that gets, for each iteration of the eager loop whose index
+    is in ``keep``, copies of the arguments of its calls of KI-head,
+    KI-lines and KI-tail (``iteration_cuda.head``, ``lines``, ``tail``)."""
+    from lara_tpu_torch.solver import iteration_cuda
+
+    calls, seen = {}, []
+    real = {name: getattr(iteration_cuda, name)
+            for name in ("head", "lines", "tail")}
+
+    def spy(name):
+        def call(*args, **kw):
+            if name == "head":
+                seen.append(1)
+            k = len(seen) - 1
+            if k in keep:
+                calls.setdefault(k, {})[name] = _cloned(args)
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(iteration_cuda, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(iteration_cuda, name, fn)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _body_bounds(model, st, c, hd, ln, tb, match, new, steps):
+    """Bounds of KI-head, KI-lines and KI-tail on these inputs: each input
+    read once and each output written once (KI-head reads and writes a
+    PSSM cell, its seq score and active bit, only at each run start), over
+    3.35 TB/s; or their compares, maxima and selects (KI-head's scan: four
+    a pass and entry) over 67 T/s."""
+    b, d = model.dual_l.shape
+    ne = model.seq_score.shape[1]
+    starts = int((st.start_dst < ne).sum())
+    head = _bound(
+        _nbytes(model.sscore, c.dual, c.dual_at_queue, model.dvalid,
+                model.dual_l, c.lane_active, *hd) + 9.0 * starts,
+        8.0 * steps * b * d)
+    lines = _bound(
+        _nbytes(tb.partner, model.dual_l, model.dual_m, model.rev,
+                model.dvalid, model.sscore, c.dual, hd.run_p, hd.run_idx,
+                hd.is_top, st.lq, st.mq, st.nc_base, c.lane_active, *ln),
+        20.0 * b * d)
+    tail = _bound(
+        _nbytes(*(t for f, t in zip(c._fields, c) if f != "dual_at_queue"),
+                tb.upper, tb.gap_score, tb.n_lines, tb.seq_part, tb.partner,
+                match.score, match.used_slot, ln.sg, ln.count,
+                ln.consistent_sum, ln.matched_cons_slot,
+                *(t for f, t in zip(new._fields, new)
+                  if f != "dual_at_queue")),
+        6.0 * b * d)
+    return {"iteration_head": head, "iteration_lines": lines,
+            "iteration_tail": tail}
+
+
+def _hold_body(label, model, st, c, tb, match, lb_max, max_nondecr, stats,
+               time_plain=True):
+    """KI-head, KI-lines and KI-tail against their plain versions on one
+    set of inputs, every output and the PSSM grid (fatal on any
+    difference); each kernel fed the plain version's upstream outputs.
+    Timed with CUDA events beside their bounds (:func:`_body_bounds`)."""
+    import torch
+
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    st_plain = st._replace(pssm=st.pssm.clone())
+    hd = iteration_cuda.head(model, st, c)
+    hd_p = device_solver.head_plain(model, st_plain, c)
+    ln = iteration_cuda.lines(model, st, c, hd_p, tb.partner, lb_max)
+    ln_p = device_solver.lines_plain(model, st, c, hd_p, tb.partner, lb_max)
+    new = iteration_cuda.tail(c, hd_p.dual_at_queue, tb, ln_p, match,
+                              max_nondecr)
+    new_p = device_solver.tail_plain(c, hd_p.dual_at_queue, tb, ln_p, match,
+                                     max_nondecr)
+    torch.cuda.synchronize()
+    errs = {
+        "iteration_head": max(
+            [_max_abs_err(st.pssm, st_plain.pssm)]
+            + [_max_abs_err(g, w) for g, w in zip(hd, hd_p)]),
+        "iteration_lines": max(_max_abs_err(g, w) for g, w in zip(ln, ln_p)),
+        "iteration_tail": max(_max_abs_err(g, w)
+                              for g, w in zip(new, new_p)),
+    }
+    if any(errs.values()):
+        raise AssertionError(f"the iteration body's kernels disagree with "
+                             f"their plain versions at {label}: {errs}")
+    runs = {
+        "iteration_head": (
+            lambda: iteration_cuda.head(model, st, c),
+            lambda: device_solver.head_plain(model, st_plain, c)),
+        "iteration_lines": (
+            lambda: iteration_cuda.lines(model, st, c, hd_p, tb.partner,
+                                         lb_max),
+            lambda: device_solver.lines_plain(model, st, c, hd_p, tb.partner,
+                                              lb_max)),
+        "iteration_tail": (
+            lambda: iteration_cuda.tail(c, hd_p.dual_at_queue, tb, ln_p,
+                                        match, max_nondecr),
+            lambda: device_solver.tail_plain(c, hd_p.dual_at_queue, tb, ln_p,
+                                             match, max_nondecr)),
+    }
+    bounds = _body_bounds(model, st, c, hd_p, ln_p, tb, match, new_p,
+                          len(st.same_masks))
+    for name, (kernel, plain) in runs.items():
+        ms = _time_ms(kernel, 50)
+        plain_ms = _time_ms(plain, 3) if time_plain else None
+        bound_ms, bound_by = bounds[name]
+        stats[name].append((label, errs[name], ms, plain_ms, bound_ms,
+                            bound_by))
+        shown = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
+        print(f"  {name:16s} {label:40s} max_abs_err {errs[name]}  kernel "
+              f"{ms:.4f} ms  plain {shown}  bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+
+
+def _random_body_inputs(batch, carry, la_max, lb_max, seed, dev):
+    """A random carry, alignment and K3 result for a real chunk's model:
+    random duals, lanes active or not, a third of them still at the
+    initial bounds, partner rows that put random dual edges on lines."""
+    import torch
+
+    from lara_tpu_torch.ops import gotoh
+    from lara_tpu_torch.solver.matching_device import RoundsResult
+
+    rng = np.random.default_rng(seed)
+    b, d = batch.dual_l.shape
+    dvalid = batch.dvalid.cpu().numpy()
+    dual_l = batch.dual_l.cpu().numpy()
+
+    def ints(lo, hi, shape=(b,)):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+            np.int32)).to(dev)
+
+    fresh = torch.from_numpy(rng.random(b) < 0.3).to(dev)
+    lower = ints(-9000, 0)
+    c = carry._replace(
+        dual=torch.from_numpy(np.where(dvalid, rng.integers(-60, 60, (b, d)),
+                                       0).astype(np.int32)).to(dev),
+        step_factor=torch.from_numpy(rng.uniform(0.01, 2.0, b).astype(
+            np.float32)).to(dev),
+        nondecr=ints(0, 6), remaining=ints(1, 4),
+        lane_active=torch.from_numpy(rng.random(b) < 0.8).to(dev),
+        best_lower=torch.where(fresh, carry.best_lower, lower),
+        best_upper=torch.where(fresh, carry.best_upper,
+                               lower + ints(0, 9000)))
+    partner = np.full((b, la_max), -1, np.int32)
+    for k in range(b):
+        on = dual_l[k][dvalid[k] & (rng.random(d) < 0.5)]
+        partner[k, on // lb_max] = on % lb_max
+    partner = torch.from_numpy(partner).to(dev)
+    tb = gotoh.Traceback(upper=ints(-9000, 9000), partner=partner,
+                         n_lines=ints(0, la_max), gap_score=ints(-900, 0),
+                         seq_part=ints(-9000, 9000),
+                         lines=gotoh.no_lines(b, dev))
+    match = RoundsResult(score=ints(0, 900), used_slot=torch.from_numpy(
+        rng.random((b, la_max)) < 0.5).to(dev))
+    return c, tb, match
+
+
+def _body_phase(label, records, dev, stats, seed):
+    """KI-head, KI-lines and KI-tail against their plain versions on a
+    bench chunk's model with a random carry (:func:`_random_body_inputs`),
+    timed beside their bounds."""
+    from lara_tpu_torch.solver import device_solver
+
+    batch, how, carry0, _ = _chunk_batch(records, dev)
+    (_go, _ge, la_max, lb_max), (max_nondecr, _lookahead, scan_steps) = how
+    st = device_solver._prepare(batch, la_max, lb_max, scan_steps)
+    c, tb, match = _random_body_inputs(batch, carry0(), la_max, lb_max, seed,
+                                       dev)
+    b, d = batch.dual_l.shape
+    _hold_body(f"{label} B={b} D={d} random carry", batch, st, c, tb, match,
+               lb_max, max_nondecr, stats)
 
 
 @contextlib.contextmanager
@@ -1601,6 +1825,109 @@ def _loop_overhead(batch, how, carry0, n_iter):
     return min(times["loop"]), min(times["bare"])
 
 
+def _capture_nodes(graph) -> dict:
+    """The nodes of a torch capture (``keep_graph=True``) by type, from the
+    driver API: the device operations that one replay of it runs."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    size_p = ctypes.POINTER(ctypes.c_size_t)
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, size_p]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_int)]
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what}: CUDA driver error {rc}")
+
+    handle = graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    # CUgraphNodeType (cuda.h)
+    names = {0: "kernel", 1: "memcpy", 2: "memset", 5: "empty"}
+    by_type = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        check(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        name = names.get(kind.value, f"type {kind.value}")
+        by_type[name] = by_type.get(name, 0) + 1
+    return by_type
+
+
+def _device_ops(by_type) -> int:
+    """The kernels, copies and fills among a capture's nodes
+    (:func:`_capture_nodes`)."""
+    return sum(by_type.get(k, 0) for k in ("kernel", "memcpy", "memset"))
+
+
+#: the section of the body that runs each kernel of ``csrc/`` (by the
+#: kernel function's name, less ``_kernel``)
+OWN_SECTION = {"dp_wave": "dp", "dp_walk": "dp", "matching_rounds": "k3",
+               "iteration_head": "head", "iteration_lines": "lines",
+               "iteration_tail": "tail"}
+
+
+def _attribution(batch, how, carry0, n_iter):
+    """Device time and device operations of one iteration by section of the
+    body (the ``lara.*`` ranges of ``device_solver._section``), from
+    ``torch.profiler`` over ``n_iter`` eager runs of a graph entry's
+    ``step``, the code its capture records: the iteration and the copies of
+    the carry into the static one.  Each operation counts in the innermost
+    section around the host call that launched it.  Returns {section:
+    (device us per iteration, operations per iteration)}, with the
+    operations outside every section under "outside"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lara_tpu_torch.solver import dispatch_graph
+
+    (go, ge, la_max, lb_max), rest = how
+    key = dispatch_graph.key_of(batch, go, ge, la_max, lb_max, *rest)
+    entry = dispatch_graph._Entry(key, batch, carry0())
+    try:
+        for _ in range(2):
+            entry.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_iter):
+                entry.step()
+            torch.cuda.synchronize()
+    finally:
+        entry.graph.close()
+    sections = {}
+
+    def add(name, us, count):
+        was_us, was_count = sections.get(name, (0.0, 0))
+        sections[name] = (was_us + us, was_count + count)
+
+    def own(name):
+        return next((section for kernel, section in OWN_SECTION.items()
+                     if f"{kernel}_kernel" in name), None)
+
+    for e in prof.events():
+        # the device-side copies of the ranges are no operations, and the
+        # kernels of csrc/ (launched through ctypes, outside any operator)
+        # are counted by name below
+        ops = [k for k in e.kernels
+               if not k.name.startswith("lara.") and own(k.name) is None]
+        if not ops:
+            continue
+        s = e
+        while s is not None and not s.name.startswith("lara."):
+            s = s.cpu_parent
+        add(s.name[len("lara."):] if s is not None else "outside",
+            sum(k.duration for k in ops), len(ops))
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and own(e.key):
+            add(own(e.key), e.self_device_time_total, e.count)
+    return {name: (us / n_iter, count / n_iter)
+            for name, (us, count) in sections.items()}
+
+
 def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
                    walls=None):
     """Where one chunk's solve spends its time, under the switches ``env``
@@ -1622,8 +1949,8 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
 
     from lara_tpu_torch.solver import dispatch_graph
 
-    names = "K1-grid/K2-grid/K3" if (env or {}).get("LARA_DP_GRID") \
-        else "K1/K2/K3"
+    grid = bool((env or {}).get("LARA_DP_GRID"))
+    names = "K1-grid/K2-grid/K3" if grid else "K1/K2/K3"
     with _env(env):
         batch, how, carry0, _ = _chunk_batch(records, dev)
         b, d = batch.dual_l.shape
@@ -1643,7 +1970,14 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
                 solve(eager)
                 walls[way] = (time.perf_counter() - start) * 1e3
             loop_ms, bare_ms = _loop_overhead(batch, how, carry0, n_iter)
+            (go, ge, la_max, lb_max), rest = how
+            key = dispatch_graph.key_of(batch, go, ge, la_max, lb_max, *rest)
+            (entry,) = [e for e in dispatch_graph._entries if e.key == key]
+            nodes = _capture_nodes(entry.graph._graph)
             dispatch_graph.release()
+            if not grid and _device_ops(nodes) > 12:
+                raise AssertionError(f"{label}: the captured iteration holds "
+                                     f"{nodes}, more than 12 operations")
             print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm "
                   "iterations, unprofiled: wall per iteration "
                   + ", ".join(f"{way} {ms / n_iter:.3f} ms"
@@ -1651,9 +1985,12 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
                   + f"; device time per iteration, the dispatch's loop "
                   f"{loop_ms:.4f} ms, its captured iteration replayed bare "
                   f"{bare_ms:.4f} ms (least of 8, in turns): the loop exit "
-                  f"adds {(loop_ms - bare_ms) * 1e3:.1f} us")
+                  f"adds {(loop_ms - bare_ms) * 1e3:.1f} us; the captured "
+                  f"iteration holds {_device_ops(nodes)} device operations "
+                  f"(nodes by type {nodes})")
             return walls
-        with _k3_calls({0, 1, 2, n_iter - 1}) as calls:
+        keep = {0, 1, 2, n_iter - 1}
+        with _k3_calls(keep) as calls, _body_calls(keep) as body:
             solve(True)
         solve(False)  # captures the graph
         profiles = {}
@@ -1663,6 +2000,7 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
                 solve(eager)
             profiles[way] = prof
         dispatch_graph.release()
+        sections = _attribution(batch, how, carry0, n_iter)
     print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations, "
           "profiled:")
     seen_eager = None
@@ -1681,12 +2019,14 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
         # K2-grid are both dp_walk_kernel
         ours = {name: sum(e.self_device_time_total for e in device
                           if f"{name}_kernel" in e.key) / n_iter
-                for name in ("dp_wave", "dp_walk", "matching_rounds")}
-        # graphed: mostly the copies of the carry back into the static one
+                for name in ("dp_wave", "dp_walk", "matching_rounds") + BODY}
+        # copies of the carry into the graph's static one: none, as KI-head
+        # and KI-tail write it in place
         copies = [e for e in device if "Memcpy DtoD" in e.key]
         seen = (f"device busy {busy_ms / n_iter:.3f} ms/iteration "
                 f"({busy_ms / wall_ms:.1%} of the unprofiled wall), "
-                f"{per_iteration:.1f} kernels/iteration, {names} "
+                f"{per_iteration:.1f} kernels/iteration, {names}/KI-head/"
+                "KI-lines/KI-tail "
                 + " / ".join(f"{us:.1f}" for us in ours.values())
                 + " us/iteration, device-to-device copies "
                 f"{sum(e.count for e in copies) / n_iter:.1f}/iteration "
@@ -1694,10 +2034,23 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
                 " us/iteration" + missed) if device else \
             "the profiler saw no device time (not measured)"
         print(f"    {way:8s} {seen}")
+    total_us = sum(us for us, _ in sections.values())
+    total_ops = sum(n for _, n in sections.values())
+    print(f"    by section (eager steps of the graph's entry, profiled): "
+          f"{total_us:.1f} us and {total_ops:.1f} device operations per "
+          "iteration: " + "; ".join(f"{name} {us:.1f} us / {n:.1f}"
+                                    for name, (us, n) in sections.items()))
     for k in sorted(calls):
         args = calls[k]
         _hold_matching(f"{label} iteration {k + 1}", args[:5], args[5],
                        stats, time_plain=False)
+    # KI-head, KI-lines and KI-tail on the same iterations' own inputs
+    lb_max, max_nondecr = how[0][3], how[1][0]
+    for k in sorted(body):
+        model, st, c, _out = body[k]["head"]
+        c_tail, _daq, tb, _ln, match, *_ = body[k]["tail"]
+        _hold_body(f"{label} iteration {k + 1}", model, st, c, tb, match,
+                   lb_max, max_nondecr, stats, time_plain=False)
 
 
 def main() -> int:
@@ -1783,6 +2136,10 @@ def main() -> int:
                                         mutations=12)),
         ("16S-1530nt-batch28", make_long_family(n=8, length=1530, seed=47)),
     ]
+    # KI-head, KI-lines and KI-tail on the tRNA, ~300 nt and 16S chunks'
+    # models with random carries (their own inputs follow in phase 4)
+    for seed, (label, records) in enumerate(families, start=51):
+        _body_phase(label, records, dev, stats, seed)
     trna, rrna, long16 = families
     fused = FUSED_ITERATION + K4
     launches = dict.fromkeys(KERNELS, 0)
@@ -1800,7 +2157,7 @@ def main() -> int:
     _graph_phase("trna-72nt-structure-free",
                  without_structure(make_family(n=16)), dev, FUSED_ITERATION)
     _graph_phase(*trna, dev, GRID_ITERATION, env={"LARA_DP_GRID": "1"})
-    _graph_phase(*rrna, dev, ("gotoh_resident", "matching_rounds"),
+    _graph_phase(*rrna, dev, ("gotoh_resident", "matching_rounds") + BODY,
                  env={"LARA_DP_RESIDENT": "1"})
 
     with tempfile.TemporaryDirectory() as tmp:

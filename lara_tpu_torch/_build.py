@@ -45,7 +45,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
             "gotoh_grid_dp": 0, "gotoh_grid_tb": 0, "gotoh_resident": 0,
             "edge_sweep": 0, "edge_pack": 0, "wavefront_chain": 0,
-            "loop_exit": 0}
+            "loop_exit": 0, "iteration_head": 0, "iteration_lines": 0,
+            "iteration_tail": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -249,6 +250,13 @@ def library() -> ctypes.CDLL:
         lib.lara_loop_graph_launch.argtypes = [ptr, ptr]
         lib.lara_loop_graph_free.restype = i32
         lib.lara_loop_graph_free.argtypes = [ptr, ptr]
+        lib.lara_iteration_head.restype = i32
+        lib.lara_iteration_head.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 6
+        lib.lara_iteration_lines.restype = i32
+        lib.lara_iteration_lines.argtypes = [ptr] * 14 + [i32] * 6 + [ptr] * 7
+        lib.lara_iteration_tail.restype = i32
+        lib.lara_iteration_tail.argtypes = [ctypes.POINTER(ptr), i32, i32,
+                                            i32, i32, i32, ptr]
         lib.lara_smem_optin.restype = i32
         lib.lara_smem_optin.argtypes = [i32, ctypes.POINTER(i32)]
         lib.lara_cuda_error_string.restype = ctypes.c_char_p

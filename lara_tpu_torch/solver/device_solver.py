@@ -10,9 +10,11 @@ The dual table is edge-major (sorted by (l, m), one contiguous run per
 alignment edge, partner ids ascending within a run).  Where the JAX body
 works around the TPU's memory system, this port takes the GPU form:
 
-* PSSM placement is one scatter of max(run top, 0) at the run starts (the
-  JAX ``e_cap == 0`` semantics); the sort plus int8-limb matmul placement
-  and the scatter-max branch are TPU forms and are not ported,
+* the PSSM grid, where(active, seq_score, PSSM_INIT), is built once per
+  model (``_prepare``), and each iteration writes max(run top, 0) into its
+  run-start cells alone (the JAX ``e_cap == 0`` semantics); the sort plus
+  int8-limb matmul placement and the scatter-max branch are TPU forms and
+  are not ported,
 * line membership of an entry is a gather, ``partner[l // LB] == l % LB``,
   in place of the [B, D, S] compare-reduce (equal everywhere: slot a's line
   edge is a * LB + partner[a], and partner < LB),
@@ -21,10 +23,15 @@ works around the TPU's memory system, this port takes the GPU form:
   [B, D, S] compare.
 
 The run-top tie-break (``_run_top``) and the float32 dual update keep the
-reference's operation order, in eager torch.
+reference's operation order.
 
-On the card one iteration holds no host synchronisation: K2 and K3 replace
-the two data-dependent loops.  There a dispatch is one launch of a CUDA
+On the card an iteration (:func:`_iteration`) is six kernels: KI-head, the
+DP (K1 + K2, or the plan's), KI-lines, K3 and KI-tail; the three of the
+body are ``csrc/iteration.cu``
+(:mod:`lara_tpu_torch.solver.iteration_cuda`), and on the CPU their plain
+versions run, :func:`head_plain`, :func:`lines_plain` and
+:func:`tail_plain`, the body's sections as the JAX body has them.  One
+iteration holds no host synchronisation.  A dispatch is one launch of a CUDA
 graph that loops over a captured iteration while iterations are left and
 a lane is active (:mod:`lara_tpu_torch.solver.dispatch_graph`): the
 counterpart of the JAX package's one jitted ``while_loop``, with the same
@@ -48,6 +55,7 @@ import torch
 
 from lara_tpu_torch.types import INFINITY, PSSM_INIT
 from lara_tpu_torch.ops import gotoh_cuda, gotoh_plan
+from lara_tpu_torch.solver import iteration_cuda
 from lara_tpu_torch.solver.matching_device import greedy_matching_queue
 
 I32 = torch.int32
@@ -257,6 +265,9 @@ class _Static(NamedTuple):
     iota_cw: torch.Tensor    # [1, CW]
     slot_base: torch.Tensor  # [1, S]
     plan: gotoh_plan.Plan    # the DP kernels (LARA_DP_GRID/RESIDENT)
+    # [B, LA, LB] the PSSM grid: where(active, seq_score, PSSM_INIT) once,
+    # its run-start cells rewritten by every iteration's KI-head
+    pssm: torch.Tensor
 
 
 def _prepare(model: BatchModel, la_max: int, lb_max: int,
@@ -297,6 +308,8 @@ def _prepare(model: BatchModel, la_max: int, lb_max: int,
                    * lb_max)[None, :],
         plan=gotoh_cuda.plan_for(la_max, lb_max, dev,
                                  gotoh_plan.fused_dchunk(la_max, lb_max)),
+        pssm=torch.where(model.active, model.seq_score,
+                         int(PSSM_INIT)).reshape(b, la_max, lb_max),
     )
 
 
@@ -307,122 +320,231 @@ def _in_lines(edge: torch.Tensor, partner: torch.Tensor,
     return partner.gather(1, (edge // lb_max).long()) == edge % lb_max
 
 
-def _iteration(model: BatchModel, st: _Static, c: _Carry, go: int, ge: int,
-               la_max: int, lb_max: int, max_nondecr: int,
-               lookahead: int) -> _Carry:
+def _section(name: str):
+    """A ``torch.profiler`` range over one section of the iteration body
+    (``lara.<name>``): sections in ``LARA_PROFILE`` traces, and
+    ``chip_smoke.py``'s device time by section.  Host code only: a graph's
+    replays run none of it."""
+    return torch.profiler.record_function(f"lara.{name}")
+
+
+class _Head(NamedTuple):
+    """What KI-head hands on: the carry's new ``dual_at_queue`` and the
+    per-edge queue top of every entry."""
+
+    dual_at_queue: torch.Tensor  # [B, D] int32
+    run_p: torch.Tensor          # [B, D] int32 top profit of the run
+    run_idx: torch.Tensor        # [B, D] int32 index of the top entry
+    is_top: torch.Tensor         # [B, D] bool
+
+
+class _Lines(NamedTuple):
+    """What KI-lines hands on to K3 and KI-tail."""
+
+    slot_edge: torch.Tensor          # [B, S] int32 line edge id, NE if none
+    sg: torch.Tensor                 # [B, D] int32 subgradient
+    count: torch.Tensor              # [B] int32 subgradient norm
+    consistent_sum: torch.Tensor     # [B] int32
+    matched_cons_slot: torch.Tensor  # [B, S] bool
+    cand_q: torch.Tensor             # [B, CW] bool K3's live columns
+
+
+def head_plain(model: BatchModel, st: _Static, c: _Carry) -> _Head:
+    """KI-head's plain version (JAX body ``:452-506``): the queue top of
+    every edge's run and the PSSM.  Writes the run-start cells of
+    ``st.pssm``; every other cell keeps its loop-invariant value."""
     b, ne = model.seq_score.shape
     act = c.lane_active
-    dual_at_queue = torch.where(act[:, None], c.dual, c.dual_at_queue)
+    with _section("run_top"):
+        dual_at_queue = torch.where(act[:, None], c.dual, c.dual_at_queue)
 
-    # ---- per-edge queue top: capped segmented doubling scan ----
-    profits = model.sscore + c.dual
-    masked = torch.where(model.dvalid, profits, NEG_INF)
-    d = model.dual_l.shape[1]
-    run_p, run_idx = _run_top(masked, st.iota_d, st.same_masks, NEG_INF, d)
-    is_top = model.dvalid & (profits == run_p)
+        # ---- per-edge queue top: capped segmented doubling scan ----
+        profits = model.sscore + c.dual
+        masked = torch.where(model.dvalid, profits, NEG_INF)
+        d = model.dual_l.shape[1]
+        run_p, run_idx = _run_top(masked, st.iota_d, st.same_masks, NEG_INF,
+                                  d)
+        is_top = model.dvalid & (profits == run_p)
 
-    # ---- PSSM grid: max(run max, 0) of each edge at its cell (run starts
-    # carry the full-run aggregate); uncovered cells get 0 ----
-    placed = torch.zeros((b, ne + 1), dtype=I32, device=profits.device)
-    placed.scatter_(1, st.start_dst, torch.clamp(run_p, min=0))
-    pssm = torch.where(model.active, model.seq_score + placed[:, :ne],
-                       int(PSSM_INIT)).reshape(b, la_max, lb_max)
+    with _section("pssm"):
+        # ---- PSSM grid: max(run max, 0) of each edge at its cell (run
+        # starts carry the full-run aggregate); every other cell is
+        # where(active, seq_score, PSSM_INIT), as ``_prepare`` left it ----
+        lane, entry = torch.nonzero((st.start_dst >= 0) & (st.start_dst < ne),
+                                    as_tuple=True)
+        cell = st.start_dst[lane, entry]
+        grid = st.pssm.view(b, ne)
+        grid[lane, cell] = torch.where(
+            model.active[lane, cell],
+            model.seq_score[lane, cell] + torch.clamp(run_p[lane, entry],
+                                                      min=0),
+            int(PSSM_INIT))
+    return _Head(dual_at_queue, run_p, run_idx, is_top)
 
-    # ---- relaxed problem: wavefront DP + traceback (K1 + K2 by default,
-    # else the plan's variant) ----
-    tb = gotoh_cuda.align_pssm_batch(pssm, model.la, model.lb, go, ge,
-                                     la_max, lb_max, model.seq_score,
-                                     plan=st.plan)
-    upper = tb.upper
-    partner = tb.partner                                  # [B, S]
-    slot_valid = partner >= 0
-    slot_edge = torch.where(slot_valid, st.slot_base + partner, ne)
 
-    # ---- line membership per entry (gathers) ----
-    l_in = _in_lines(model.dual_l, partner, lb_max)
-    m_in = _in_lines(model.dual_m, partner, lb_max)
-    l_in_q = _in_lines(st.lq, partner, lb_max)
-    m_in_q = _in_lines(st.mq, partner, lb_max)
+def lines_plain(model: BatchModel, st: _Static, c: _Carry, head: _Head,
+                partner: torch.Tensor, lb_max: int) -> _Lines:
+    """KI-lines' plain version (JAX body ``:514-582``): line membership,
+    subgradients, the consistent branch and K3's candidate mask, from the
+    alignment's ``partner`` [B, S]."""
+    ne = model.seq_score.shape[1]
+    la_max = partner.shape[1]
+    act = c.lane_active
+    with _section("membership"):
+        slot_valid = partner >= 0
+        slot_edge = torch.where(slot_valid, st.slot_base + partner, ne)
 
-    # ---- subgradients (lagrange.hpp:343-374): cycle(i) = pick(rev(i)) ----
-    pick = l_in & (run_p >= 0) & is_top
-    pick_rev = pick.gather(1, model.rev.long())
-    sg_pos = pick & ~pick_rev
-    sg = sg_pos.to(I32) - (pick_rev & ~pick).to(I32)
-    count = 2 * sg_pos.sum(1, dtype=I32)
-    any_sg = count > 0
+        # ---- line membership per entry (gathers) ----
+        l_in = _in_lines(model.dual_l, partner, lb_max)
+        m_in = _in_lines(model.dual_m, partner, lb_max)
+        l_in_q = _in_lines(st.lq, partner, lb_max)
+        m_in_q = _in_lines(st.mq, partner, lb_max)
 
-    # ---- consistent branch (lagrange.hpp:397-409): entry-level, at the
-    # unique top entry of each run ----
-    is_top_exact = model.dvalid & (st.iota_d == run_idx)
-    tis_entry = (profits < 0) | ((profits == 0)
-                                 & (model.dual_l < model.dual_m))
-    contrib = is_top_exact & l_in & ~tis_entry
-    consistent_sum = torch.where(contrib, model.sscore, 0).sum(1, dtype=I32)
-    # a line slot is matched in the consistent case iff its own top
-    # contributes, or some contributing line chose it as partner
-    marks = torch.zeros((b, la_max + 1), dtype=I32, device=profits.device)
-    marks.scatter_(1, torch.where(contrib, model.dual_l // lb_max,
-                                  la_max).long(), 1)
-    marks.scatter_(1, torch.where(contrib & m_in, model.dual_m // lb_max,
-                                  la_max).long(), 1)
-    matched_cons_slot = slot_valid & (marks[:, :la_max] != 0)
+        # ---- subgradients (lagrange.hpp:343-374): cycle(i) = pick(rev(i))
+        pick = l_in & (head.run_p >= 0) & head.is_top
+        pick_rev = pick.gather(1, model.rev.long())
+        sg_pos = pick & ~pick_rev
+        sg = sg_pos.to(I32) - (pick_rev & ~pick).to(I32)
+        count = 2 * sg_pos.sum(1, dtype=I32)
+        any_sg = count > 0
 
-    # ---- matching branch (lagrange.hpp:380-395): K3 ----
-    cand_q = (st.iota_cw < st.nc_base[:, None]) & l_in_q & m_in_q \
-        & any_sg[:, None] & act[:, None]
-    match_res = greedy_matching_queue(st.lq, st.mq, st.wq, cand_q,
-                                      slot_edge, lookahead)
-    struct_part = torch.where(any_sg, match_res.score, consistent_sum)
+    with _section("consistent"):
+        # ---- consistent branch (lagrange.hpp:397-409): entry-level, at the
+        # unique top entry of each run ----
+        profits = model.sscore + c.dual
+        is_top_exact = model.dvalid & (st.iota_d == head.run_idx)
+        tis_entry = (profits < 0) | ((profits == 0)
+                                     & (model.dual_l < model.dual_m))
+        contrib = is_top_exact & l_in & ~tis_entry
+        consistent_sum = torch.where(contrib, model.sscore, 0).sum(
+            1, dtype=I32)
+        # a line slot is matched in the consistent case iff its own top
+        # contributes, or some contributing line chose it as partner
+        marks = torch.zeros((partner.shape[0], la_max + 1), dtype=I32,
+                            device=partner.device)
+        marks.scatter_(1, torch.where(contrib, model.dual_l // lb_max,
+                                      la_max).long(), 1)
+        marks.scatter_(1, torch.where(contrib & m_in, model.dual_m // lb_max,
+                                      la_max).long(), 1)
+        matched_cons_slot = slot_valid & (marks[:, :la_max] != 0)
+        # ---- the matching branch's candidates (lagrange.hpp:380-395) ----
+        cand_q = (st.iota_cw < st.nc_base[:, None]) & l_in_q & m_in_q \
+            & any_sg[:, None] & act[:, None]
+    return _Lines(slot_edge, sg, count, consistent_sum, matched_cons_slot,
+                  cand_q)
 
-    lower = tb.seq_part + struct_part + tb.gap_score
 
-    # ---- best primal tracking (lagrange.hpp:416-421) ----
-    better = act & (lower > c.best_score)
-    slot_matched = torch.where(any_sg[:, None], match_res.used_slot,
-                               matched_cons_slot) & slot_valid
-    best_score = torch.where(better, lower, c.best_score)
-    best_partner = torch.where(better[:, None], partner, c.best_partner)
-    best_nlines = torch.where(better, tb.n_lines, c.best_nlines)
-    best_matched = torch.where(better[:, None], slot_matched, c.best_matched)
+def tail_plain(c: _Carry, dual_at_queue: torch.Tensor, tb, lines: _Lines,
+               match_res, max_nondecr: int) -> _Carry:
+    """KI-tail's plain version (JAX body ``:583-628``): the lower bound,
+    best-primal tracking, the bound bookkeeping and the dual update, from
+    the alignment ``tb`` and K3's ``match_res``; returns the next carry."""
+    act = c.lane_active
+    with _section("bookkeeping"):
+        any_sg = lines.count > 0
+        struct_part = torch.where(any_sg, match_res.score,
+                                  lines.consistent_sum)
 
-    # ---- bound bookkeeping (subgradient_solver.hpp:247-263) ----
-    improved_u = act & (upper < c.best_upper)
-    improved_l = act & (lower > c.best_lower)
-    best_upper = torch.where(improved_u, upper, c.best_upper)
-    best_lower = torch.where(improved_l, lower, c.best_lower)
-    nondecr = torch.where(improved_u | improved_l, 0, c.nondecr)
-    halve = act & (nondecr >= max_nondecr)
-    step_factor = torch.where(halve, c.step_factor / 2.0, c.step_factor)
-    nondecr = torch.where(act, torch.where(halve, 0, nondecr + 1),
-                          c.nondecr).to(I32)
+        lower = tb.seq_part + struct_part + tb.gap_score
 
-    # ---- dual update (subgradient_solver.hpp:265-271): float32, in the
-    # reference's operation order, truncated toward zero ----
-    step = step_factor * (best_upper - best_lower).to(F32) \
-        / torch.clamp(count, min=1).to(F32)
-    upd = act[:, None] & (sg != 0)
-    new_dual = (c.dual.to(F32) - step[:, None] * sg.to(F32)).to(I32)
-    dual = torch.where(upd, new_dual, c.dual)
+        # ---- best primal tracking (lagrange.hpp:416-421) ----
+        better = act & (lower > c.best_score)
+        slot_matched = torch.where(any_sg[:, None], match_res.used_slot,
+                                   lines.matched_cons_slot) & (tb.partner >= 0)
+        best_score = torch.where(better, lower, c.best_score)
+        best_partner = torch.where(better[:, None], tb.partner,
+                                   c.best_partner)
+        best_nlines = torch.where(better, tb.n_lines, c.best_nlines)
+        best_matched = torch.where(better[:, None], slot_matched,
+                                   c.best_matched)
 
-    remaining = torch.where(act, c.remaining - 1, c.remaining)
-    done_now = act & ((best_upper == best_lower) | (remaining == 0))
+        # ---- bound bookkeeping (subgradient_solver.hpp:247-263) ----
+        improved_u = act & (tb.upper < c.best_upper)
+        improved_l = act & (lower > c.best_lower)
+        best_upper = torch.where(improved_u, tb.upper, c.best_upper)
+        best_lower = torch.where(improved_l, lower, c.best_lower)
+        nondecr = torch.where(improved_u | improved_l, 0, c.nondecr)
+        halve = act & (nondecr >= max_nondecr)
+        step_factor = torch.where(halve, c.step_factor / 2.0, c.step_factor)
+        nondecr = torch.where(act, torch.where(halve, 0, nondecr + 1),
+                              c.nondecr).to(I32)
 
-    return _Carry(
-        dual=dual,
-        dual_at_queue=dual_at_queue,
-        step_factor=step_factor,
-        nondecr=nondecr,
-        remaining=remaining,
-        lane_active=act & ~done_now,
-        best_lower=best_lower,
-        best_upper=best_upper,
-        best_score=best_score,
-        best_partner=best_partner,
-        best_nlines=best_nlines,
-        best_matched=best_matched,
-        iterations=c.iterations + act.to(I32),
-    )
+        # ---- dual update (subgradient_solver.hpp:265-271): float32, in the
+        # reference's operation order, truncated toward zero ----
+        step = step_factor * (best_upper - best_lower).to(F32) \
+            / torch.clamp(lines.count, min=1).to(F32)
+        upd = act[:, None] & (lines.sg != 0)
+        new_dual = (c.dual.to(F32)
+                    - step[:, None] * lines.sg.to(F32)).to(I32)
+        dual = torch.where(upd, new_dual, c.dual)
+
+        remaining = torch.where(act, c.remaining - 1, c.remaining)
+        done_now = act & ((best_upper == best_lower) | (remaining == 0))
+        return _Carry(
+            dual=dual,
+            dual_at_queue=dual_at_queue,
+            step_factor=step_factor,
+            nondecr=nondecr,
+            remaining=remaining,
+            lane_active=act & ~done_now,
+            best_lower=best_lower,
+            best_upper=best_upper,
+            best_score=best_score,
+            best_partner=best_partner,
+            best_nlines=best_nlines,
+            best_matched=best_matched,
+            iterations=c.iterations + act.to(I32),
+        )
+
+
+def _iteration(model: BatchModel, st: _Static, c: _Carry, go: int, ge: int,
+               la_max: int, lb_max: int, max_nondecr: int, lookahead: int,
+               out: _Carry = None) -> _Carry:
+    """One iteration of the JAX ``while_loop``'s body
+    (``lara_tpu/solver/device_solver.py:447-628``): KI-head, the DP (K1 +
+    K2 by default, else the plan's kernels), KI-lines, K3 and KI-tail, on
+    the card the kernels of ``csrc/iteration.cu``, on the CPU their plain
+    versions.  Returns the next carry: ``out`` where given (it may be
+    ``c`` itself: each kernel reads an element of the carry before it
+    writes it, and nothing after KI-tail reads the old carry), else new
+    tensors."""
+    with _section("head"):
+        if c.dual.is_cuda:
+            head = iteration_cuda.head(
+                model, st, c, None if out is None else out.dual_at_queue)
+        else:
+            head = head_plain(model, st, c)
+
+    with _section("dp"):
+        # ---- relaxed problem: wavefront DP + traceback (K1 + K2 by
+        # default, else the plan's variant) over the PSSM KI-head wrote ----
+        tb = gotoh_cuda.align_pssm_batch(st.pssm, model.la, model.lb, go, ge,
+                                         la_max, lb_max, model.seq_score,
+                                         plan=st.plan)
+    with _section("lines"):
+        if c.dual.is_cuda:
+            lines = iteration_cuda.lines(model, st, c, head, tb.partner,
+                                         lb_max)
+        else:
+            lines = lines_plain(model, st, c, head, tb.partner, lb_max)
+
+    with _section("k3"):
+        # ---- matching branch (lagrange.hpp:380-395): K3 ----
+        match_res = greedy_matching_queue(st.lq, st.mq, st.wq, lines.cand_q,
+                                          lines.slot_edge, lookahead)
+    with _section("tail"):
+        if c.dual.is_cuda:
+            return iteration_cuda.tail(c, head.dual_at_queue, tb, lines,
+                                       match_res, max_nondecr, out)
+        new = tail_plain(c, head.dual_at_queue, tb, lines, match_res,
+                         max_nondecr)
+    if out is None:
+        return new
+    with _section("copies"):
+        for dst, src in zip(out, new):
+            if dst is not src:
+                dst.copy_(src)
+    return out
 
 
 def solve_batch_chunk(model: BatchModel, carry: _Carry, go, ge, la_max: int,

@@ -19,11 +19,12 @@ is done costs the launch and the kernel alone.
   ``scan_steps`` and the DP plan (:class:`lara_tpu_torch.ops.gotoh_plan.
   Plan`), plus ``go`` and ``ge``, which the kernels take as arguments.
 * **Entry** (:class:`_Entry`): static copies of the model, of its loop
-  invariants (:class:`~lara_tpu_torch.solver.device_solver._Static`) and
-  of the carry, and the graph, whose captured iteration reads the static
-  carry and writes its successor back into it.  One entry serves one
-  dispatch at a time: a second caller of the same key (a second shard on
-  the same card) gets an entry of its own.
+  invariants (:class:`~lara_tpu_torch.solver.device_solver._Static`, the
+  PSSM grid among them) and of the carry, and the graph, whose captured
+  iteration reads the static carry and writes its successor back into it
+  (on the card KI-head and KI-tail write it in place: no copy).  One
+  entry serves one dispatch at a time: a second caller of the same key (a
+  second shard on the same card) gets an entry of its own.
 * **A dispatch** (:func:`run`): copy the model (and then its invariants)
   and the carry into the entry, each only where it is not what the entry
   last held (the same tensor objects, unmodified since, by their version
@@ -199,9 +200,10 @@ def key_of(model: device_solver.BatchModel, go: int, ge: int, la_max: int,
                int(go), int(ge))
 
 
-#: the invariants that depend on the model; the others (iota_d, iota_cw,
+#: the invariants that depend on the model (``pssm``: the PSSM grid whose
+#: run-start cells each iteration rewrites); the others (iota_d, iota_cw,
 #: slot_base, plan) depend on the key only
-_MODEL_INVARIANTS = ("start_dst", "lq", "mq", "wq", "nc_base")
+_MODEL_INVARIANTS = ("start_dst", "lq", "mq", "wq", "nc_base", "pssm")
 
 
 def _seen(tensors) -> list:
@@ -253,21 +255,24 @@ class _Entry:
         if not _unchanged(self.carry_seen, carry):
             _copy_into(self.carry, carry)
 
-    def _iteration(self, carry) -> device_solver._Carry:
+    def _iteration(self, carry, out=None) -> device_solver._Carry:
         k = self.key
         return device_solver._iteration(
             self.model, self.st, carry, k.go, k.ge, k.la_max, k.lb_max,
-            k.max_nondecr, k.lookahead)
+            k.max_nondecr, k.lookahead, out)
 
     def step(self) -> None:
-        """One iteration from the static carry back into it."""
-        _copy_into(self.carry, self._iteration(self.carry))
+        """One iteration from the static carry back into it: on the card
+        KI-head and KI-tail write it in place, with no copy."""
+        self._iteration(self.carry, out=self.carry)
 
     def warm_up(self) -> None:
         """One iteration on scratch copies of the carry, its launches not
         counted, where this process has not run the key yet: it warms the
-        lazy caches before the capture and changes nothing, so the
-        dispatch runs only the iterations ``cond`` lets through."""
+        lazy caches before the capture and changes nothing the dispatch
+        reads, so the dispatch runs only the iterations ``cond`` lets
+        through.  (It writes the run-start cells of the static PSSM grid;
+        every iteration rewrites all of them before the DP reads it.)"""
         with _lock:
             if self.key in _warm:
                 return

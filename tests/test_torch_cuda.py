@@ -37,6 +37,9 @@ from lara_tpu_torch.types import PSSM_INIT
 pytestmark = pytest.mark.cuda
 
 GO, GE = -49152, -16384
+#: the iteration body's kernels (csrc/iteration.cu), once per iteration of
+#: every fused path
+ITERATION = {"iteration_head", "iteration_lines", "iteration_tail"}
 
 
 @pytest.fixture
@@ -49,6 +52,104 @@ def cuda():
 def _int_equal(got, want, name):
     assert got.shape == want.shape, name
     assert torch.equal(got.to(torch.int64), want.to(torch.int64)), name
+
+
+def iteration_case(b, la_max, lb_max, d, seed, hub=0):
+    """A random ragged batch for the iteration body (numpy): (BatchModel
+    rows, carry rows, partner [B, LA]).  Each lane's dual table is
+    edge-major, as the solver's: the entries (l, m) and (m, l) of random
+    interactions between random edges inside the lane's la x lb, sorted by
+    (l, m), one contiguous run per edge, ``rev`` pairing each entry with its
+    reverse, padding (l = m = 0, identity ``rev``) after the valid entries.
+    Interaction scores come from a few values, so profits tie; with ``hub``
+    one edge interacts with ``hub`` others (a run that long).  The carry
+    has random duals, lanes active or not, some lanes still at the initial
+    bounds or at equal bounds, and counts near their ends; the partner rows
+    put many of the dual table's edges on lines."""
+    from lara_tpu_torch.types import INFINITY
+
+    rng = np.random.default_rng(seed)
+    ne = la_max * lb_max
+    la = rng.integers(1, la_max + 1, b).astype(np.int32)
+    lb = rng.integers(1, lb_max + 1, b).astype(np.int32)
+    la[0], lb[0] = la_max, lb_max
+    seq_score = rng.integers(-5000, 5000, (b, ne)).astype(np.int32)
+    active = rng.random((b, ne)) < 0.7
+    dual_l = np.zeros((b, d), np.int32)
+    dual_m = np.zeros((b, d), np.int32)
+    sscore = np.zeros((b, d), np.int32)
+    rev = np.broadcast_to(np.arange(d, dtype=np.int32), (b, d)).copy()
+    dvalid = np.zeros((b, d), bool)
+    qrank = np.stack([rng.permutation(d) for _ in range(b)]).astype(np.int32)
+    partner = np.full((b, la_max), -1, np.int32)
+    for k in range(b):
+        cells = la[k] * lb[k]
+        edges = rng.choice(cells, min(cells, max(2, d // 3)), replace=False)
+        edges = (edges // lb[k]) * lb_max + edges % lb[k]
+        pairs = {}
+        if hub and len(edges) > 1:
+            for y in edges[1:hub + 1]:
+                pairs[(min(edges[0], y), max(edges[0], y))] = None
+        target = min(int(rng.integers(d // 4, d // 2 + 1)),
+                     len(edges) * (len(edges) - 1) // 2)
+        for _ in range(20 * d):
+            if len(pairs) >= target:
+                break
+            x, y = rng.choice(edges, 2, replace=False)
+            pairs[(min(x, y), max(x, y))] = None
+        pairs = list(pairs)[: d // 2]
+        scores = rng.choice([-20, 0, 7, 7, 13, 40], len(pairs))
+        entries = sorted([(x, y, s) for (x, y), s in zip(pairs, scores)]
+                         + [(y, x, s) for (x, y), s in zip(pairs, scores)])
+        n = len(entries)
+        where = {(x, y): i for i, (x, y, _) in enumerate(entries)}
+        for i, (x, y, s) in enumerate(entries):
+            dual_l[k, i], dual_m[k, i], sscore[k, i] = x, y, s
+            rev[k, i] = where[(y, x)]
+        dvalid[k, :n] = True
+        on_lines = rng.choice(edges, len(edges) // 2, replace=False)
+        for e in on_lines:
+            partner[k, e // lb_max] = e % lb_max
+        partner[k, la[k]:] = -1
+    dual = np.where(dvalid, rng.integers(-60, 60, (b, d)), 0).astype(np.int32)
+    dual[dvalid & (rng.random((b, d)) < 0.1)] = 0
+    inf = int(INFINITY)
+    best_lower = rng.integers(-9000, 0, b).astype(np.int32)
+    best_upper = (best_lower + rng.integers(0, 9000, b)).astype(np.int32)
+    fresh = rng.random(b) < 0.3
+    best_lower[fresh], best_upper[fresh] = -inf, inf
+    equal = rng.random(b) < 0.15
+    best_upper[equal] = best_lower[equal]
+    carry = dict(
+        dual=dual,
+        dual_at_queue=rng.integers(-60, 60, (b, d)).astype(np.int32),
+        step_factor=rng.uniform(0.01, 2.0, b).astype(np.float32),
+        nondecr=rng.integers(0, 6, b).astype(np.int32),
+        remaining=rng.integers(1, 4, b).astype(np.int32),
+        lane_active=rng.random(b) < 0.8,
+        best_lower=best_lower, best_upper=best_upper,
+        best_score=rng.integers(-9000, 9000, b).astype(np.int32),
+        best_partner=rng.integers(-1, lb_max, (b, la_max)).astype(np.int32),
+        best_nlines=rng.integers(0, la_max, b).astype(np.int32),
+        best_matched=rng.random((b, la_max)) < 0.5,
+        iterations=rng.integers(0, 400, b).astype(np.int32))
+    carry["lane_active"][0] = True
+    model = dict(seq_score=seq_score, active=active, dual_l=dual_l,
+                 dual_m=dual_m, sscore=sscore, rev=rev, dvalid=dvalid,
+                 qrank=qrank, la=la, lb=lb)
+    return model, carry, partner
+
+
+def iteration_tensors(case, dev):
+    """:func:`iteration_case` as (BatchModel, _Carry, partner) on ``dev``."""
+    from lara_tpu_torch.solver import device_solver
+
+    model, carry, partner = case
+    return (device_solver.BatchModel(**{k: torch.from_numpy(v).to(dev)
+                                        for k, v in model.items()}),
+            device_solver._Carry(**{k: torch.from_numpy(v).to(dev)
+                                    for k, v in carry.items()}),
+            torch.from_numpy(partner).to(dev))
 
 
 # (batch, la_max, lb_max, seed): tiny, ragged (la_max not a multiple of
@@ -336,7 +437,7 @@ def test_paths_on_card_match_cpu(switch, kernels, matching, cuda,
     kernels = kernels | {"edge_sweep", "edge_pack"}
     if matching:
         # the fused path: its dispatches replay graphs behind the loop exit
-        kernels = kernels | {"matching_rounds", "loop_exit"}
+        kernels = kernels | {"matching_rounds", "loop_exit"} | ITERATION
     assert launched == kernels
     assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] == 1
     assert max(r[-1] for r in on_card) > 1
@@ -690,7 +791,7 @@ def test_refill_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
     on_card = _solve_library(path, cuda, num_iterations=60)
     assert {k for k, n in _build.launches.items() if n} == {
         "gotoh_dp", "gotoh_tb", "matching_rounds", "edge_sweep", "edge_pack",
-        "loop_exit"}
+        "loop_exit"} | ITERATION
     assert sum(windows) == 15 and len(windows) > 1
     assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] \
         == len(windows)
@@ -810,8 +911,8 @@ def test_sharded_solve_on_one_card_matches_one_device(cuda, tmp_path):
     iters = one.iterations.cpu().numpy()
     want = sum(int(iters[k:k + half].max()) for k in (0, half))
     _build.settle()
-    assert _build.launches["gotoh_dp"] == want
-    assert _build.launches["matching_rounds"] == want
+    for name in ("gotoh_dp", "matching_rounds") + tuple(sorted(ITERATION)):
+        assert _build.launches[name] == want, name
     cpu_lib = _solve_library(path, torch.device("cpu"), num_iterations=60)
     out = tmp_path / "two.lib"
     app.run(Parameters(in_file=path, num_iterations=60, out_file=str(out)),
@@ -905,6 +1006,7 @@ def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
     assert 0 < ran <= 12
     assert {k: n for k, n in _build.launches.items() if n} == {
         "gotoh_dp": ran, "gotoh_tb": ran, "matching_rounds": ran,
+        **dict.fromkeys(ITERATION, ran),
         "loop_exit": 2 + ran}
 
 
@@ -944,6 +1046,7 @@ def test_loop_exit_skips_after_the_last_lane_on_card(cuda):
     assert int(got.iterations.max()) == 1
     assert {k: n for k, n in _build.launches.items() if n} == {
         "gotoh_dp": 1, "gotoh_tb": 1, "matching_rounds": 1,
+        **dict.fromkeys(ITERATION, 1),
         "loop_exit": 2}
     steps = []
     real = device_solver.solve_batch_chunk
@@ -1099,3 +1202,167 @@ def test_k1_graph_replays_after_a_smaller_launch(cuda):
     _int_equal(torch.where(valid, got[0], 0), torch.where(valid, want[0], 0),
                "dirs")
     _int_equal(got[1], want[1], "finals")
+
+
+# (b, la_max, lb_max, d, seed, hub, scan_steps): tiny, ragged with a
+# 12-partner run, the tRNA chunk's B=128 D=1024 96x96, a 40-partner run
+# under a 2-pass scan, the ~300 nt chunk, and a 16S-sized D=3072 with a
+# 60-partner run under 3 passes
+ITERATION_CASES = [(3, 20, 17, 64, 1, 0, 0), (5, 33, 40, 300, 2, 12, 0),
+                   (128, 96, 96, 1024, 3, 0, 0), (4, 96, 96, 1024, 5, 40, 2),
+                   (32, 320, 320, 1024, 6, 0, 0),
+                   (3, 200, 150, 3072, 7, 60, 3)]
+
+
+def _iteration_inputs(case, dev):
+    from lara_tpu_torch.solver import device_solver
+
+    b, la_max, lb_max, d, seed, hub, scan_steps = case
+    model, carry, partner = iteration_tensors(
+        iteration_case(b, la_max, lb_max, d, seed, hub=hub), dev)
+    st = device_solver._prepare(model, la_max, lb_max, scan_steps)
+    rng = np.random.default_rng(seed + 100)
+
+    def ints(lo, hi, shape=(b,)):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+            np.int32)).to(dev)
+
+    upper = ints(-9000, 9000)
+    upper[::3] = -device_solver.NEG_INF
+    tb = gotoh.Traceback(upper=upper, partner=partner,
+                         n_lines=ints(0, la_max), gap_score=ints(-900, 0),
+                         seq_part=ints(-9000, 9000),
+                         lines=gotoh.no_lines(b, dev))
+    match = matching_device.RoundsResult(
+        score=ints(0, 900), used_slot=torch.from_numpy(
+            rng.random((b, la_max)) < 0.5).to(dev))
+    return model, carry, st, tb, match
+
+
+def _tuple_equal(got, want, what):
+    for name, g, w in zip(want._fields, got, want):
+        _int_equal(g, w, f"{what}.{name}")
+
+
+@pytest.mark.parametrize("case", ITERATION_CASES)
+def test_iteration_kernels_match_plain(case, cuda):
+    """KI-head, KI-lines and KI-tail (``csrc/iteration.cu``) against their
+    plain versions on the same random ragged batch on the card, every
+    output bit for bit, the PSSM grid's start cells included; each kernel
+    launched once."""
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    model, c, st, tb, match = _iteration_inputs(case, cuda)
+    lb_max = case[2]
+    st_plain = st._replace(pssm=st.pssm.clone())
+    before = dict(_build.launches)
+    head = iteration_cuda.head(model, st, c)
+    head_p = device_solver.head_plain(model, st_plain, c)
+    _tuple_equal(head, head_p, "head")
+    _int_equal(st.pssm, st_plain.pssm, "pssm")
+    lines = iteration_cuda.lines(model, st, c, head_p, tb.partner, lb_max)
+    lines_p = device_solver.lines_plain(model, st, c, head_p, tb.partner,
+                                        lb_max)
+    _tuple_equal(lines, lines_p, "lines")
+    tail = iteration_cuda.tail(c, head_p.dual_at_queue, tb, lines_p, match, 3)
+    tail_p = device_solver.tail_plain(c, head_p.dual_at_queue, tb, lines_p,
+                                      match, 3)
+    torch.cuda.synchronize()
+    _tuple_equal(tail, tail_p, "tail")
+    moved = {k: _build.launches[k] - before[k] for k in before}
+    assert moved == dict.fromkeys(before, 0) | dict.fromkeys(ITERATION, 1)
+    assert bool(lines_p.count.gt(0).any()) and bool(head_p.is_top.any())
+
+
+def test_iteration_kernels_update_the_carry_in_place(cuda):
+    """With the carry's own tensors as outputs, as the dispatch graph runs
+    them, KI-head and KI-tail give what they give into new tensors."""
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    model, c, st, tb, match = _iteration_inputs(ITERATION_CASES[1], cuda)
+    head = iteration_cuda.head(model, st, c)
+    lines = iteration_cuda.lines(model, st, c, head, tb.partner, 40)
+    want = iteration_cuda.tail(c, head.dual_at_queue, tb, lines, match, 3)
+    own = device_solver._Carry(*(t.clone() for t in c))
+    head2 = iteration_cuda.head(model, st, own, own.dual_at_queue)
+    _tuple_equal(head2, head, "head")
+    got = iteration_cuda.tail(own, head2.dual_at_queue, tb, lines, match, 3,
+                              out=own)
+    torch.cuda.synchronize()
+    assert all(g is o for g, o in zip(got, own))
+    _tuple_equal(got, want, "carry")
+
+
+def test_iteration_tail_keeps_the_reference_order(cuda):
+    """KI-tail's dual update on lanes chosen so that the step taken in
+    another order, step_factor * ((ub - lb) / count) or (step_factor *
+    (ub - lb)) * (1 / count), would move the truncated dual by one: the
+    kernel and the plain version on the card give the reference's
+    float32 order, a multiply, a divide, a multiply and a subtract.  (An
+    FMA of dual - step * sg cannot differ here: sg is -1, 0 or 1, so the
+    product is exact.)"""
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    f32 = np.float32
+    rng = np.random.default_rng(77)
+    n = 500_000
+    sf = rng.uniform(0.001, 2.0, n).astype(f32)
+    gap = rng.integers(1, 2_000_000, n).astype(np.int32)
+    count = 2 * rng.integers(1, 1000, n).astype(np.int32)
+    sg = rng.choice(np.array([-1, 1], np.int32), n)
+    step = f32(sf * gap.astype(f32)) / count.astype(f32)
+    other = np.stack([sf * f32(gap.astype(f32) / count.astype(f32)),
+                      f32(sf * gap.astype(f32)) * f32(f32(1) / count)])
+    # duals that put dual - step * sg just across an integer
+    dual = (np.round(step * sg) + rng.integers(-50, 50, n)).astype(np.int32)
+
+    def moved(s):
+        return np.trunc(dual.astype(f32) - s * sg.astype(f32)).astype(
+            np.int64)
+
+    want = moved(step)
+    pick = np.flatnonzero((moved(other[0]) != want)
+                          | (moved(other[1]) != want))[:64]
+    assert len(pick) >= 8
+    b, d, slots = len(pick), 4, 8
+    bl = rng.integers(-5000, 0, b).astype(np.int32)
+    carry = device_solver._init_carry(b, d, slots, 1.0, 50, cuda)
+    dual_rows = np.zeros((b, d), np.int32)
+    dual_rows[:, 1] = dual[pick]
+    sg_rows = np.zeros((b, d), np.int32)
+    sg_rows[:, 1] = sg[pick]
+    carry = carry._replace(
+        dual=torch.from_numpy(dual_rows).to(cuda),
+        step_factor=torch.from_numpy(sf[pick]).to(cuda),
+        best_lower=torch.from_numpy(bl).to(cuda),
+        best_upper=torch.from_numpy(bl + gap[pick]).to(cuda),
+        best_score=torch.full((b,), 10**6, dtype=torch.int32, device=cuda))
+
+    def lanes(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(cuda)
+
+    # no bound improves (upper at best_upper, lower below best_lower), so
+    # the step is step_factor * gap / count
+    tb = gotoh.Traceback(upper=carry.best_upper.clone(),
+                         partner=torch.full((b, slots), -1, dtype=torch.int32,
+                                            device=cuda),
+                         n_lines=lanes(np.zeros(b)),
+                         gap_score=lanes(np.zeros(b)),
+                         seq_part=carry.best_lower - 10,
+                         lines=gotoh.no_lines(b, cuda))
+    ln = device_solver._Lines(
+        slot_edge=torch.zeros((b, slots), dtype=torch.int32, device=cuda),
+        sg=lanes(sg_rows), count=lanes(count[pick]),
+        consistent_sum=lanes(np.zeros(b)),
+        matched_cons_slot=torch.zeros((b, slots), dtype=torch.bool,
+                                      device=cuda),
+        cand_q=torch.zeros((b, 2), dtype=torch.bool, device=cuda))
+    match = matching_device.RoundsResult(
+        score=lanes(np.zeros(b)),
+        used_slot=torch.zeros((b, slots), dtype=torch.bool, device=cuda))
+    got = iteration_cuda.tail(carry, carry.dual_at_queue, tb, ln, match, 5)
+    plain = device_solver.tail_plain(carry, carry.dual_at_queue, tb, ln,
+                                     match, 5)
+    torch.cuda.synchronize()
+    _tuple_equal(got, plain, "carry")
+    assert np.array_equal(got.dual[:, 1].cpu().numpy(), want[pick])
