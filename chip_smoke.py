@@ -37,7 +37,10 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    KI-lines and KI-tail (``csrc/iteration.cu``, the fused solver's
    iteration body around the DP and K3) on the tRNA, ~300 nt and 16S
    chunks' models with random carries, every output and the PSSM grid's
-   start cells against the plain versions;
+   start cells against the plain versions, each chunk's grids printed
+   (KI-head's steps, halo, tile and CTAs; KI-lines' cluster and CTAs), and
+   KI-head and KI-lines timed in turns in other layouts (one CTA a lane;
+   KI-lines in clusters of 8), each held against its plain version too;
    then the dispatch graph (``lara_tpu_torch.solver.dispatch_graph``: on
    the card every ``solve_batch_chunk`` is one launch of a graph whose
    WHILE node loops over a captured iteration while a lane is active)
@@ -114,7 +117,8 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    (the ``lara.*`` ranges, over eager steps of a graph entry); K3 and the
    body's three kernels are held against their plain versions, and
    timed, on the solver's own arguments of iterations 1-3 and 25 (of the
-   eager loop, whose iterations call the wrappers).
+   eager loop, whose iterations call the wrappers), and the body's
+   kernels' times in the loop and alone printed side by side.
 
 It then checks that neither JAX nor any module of the JAX package (nor
 ``bench``, nor the repository's ``benchmark``) was loaded, prints a
@@ -1449,14 +1453,17 @@ def _hold_body(label, model, st, c, tb, match, lb_max, max_nondecr, stats,
                time_plain=True):
     """KI-head, KI-lines and KI-tail against their plain versions on one
     set of inputs, every output and the PSSM grid (fatal on any
-    difference); each kernel fed the plain version's upstream outputs.
-    Timed with CUDA events beside their bounds (:func:`_body_bounds`)."""
+    difference; the grids start from :func:`_unwritten_grid`); each kernel
+    fed the plain version's upstream outputs.  Timed with CUDA events
+    beside their bounds (:func:`_body_bounds`)."""
     import torch
 
     from lara_tpu_torch.solver import device_solver, iteration_cuda
 
-    st_plain = st._replace(pssm=st.pssm.clone())
-    hd = iteration_cuda.head(model, st, c)
+    grid = _unwritten_grid(model, st)
+    st_kernel = st._replace(pssm=grid.clone())
+    st_plain = st._replace(pssm=grid.clone())
+    hd = iteration_cuda.head(model, st_kernel, c)
     hd_p = device_solver.head_plain(model, st_plain, c)
     ln = iteration_cuda.lines(model, st, c, hd_p, tb.partner, lb_max)
     ln_p = device_solver.lines_plain(model, st, c, hd_p, tb.partner, lb_max)
@@ -1467,7 +1474,7 @@ def _hold_body(label, model, st, c, tb, match, lb_max, max_nondecr, stats,
     torch.cuda.synchronize()
     errs = {
         "iteration_head": max(
-            [_max_abs_err(st.pssm, st_plain.pssm)]
+            [_max_abs_err(st_kernel.pssm, st_plain.pssm)]
             + [_max_abs_err(g, w) for g, w in zip(hd, hd_p)]),
         "iteration_lines": max(_max_abs_err(g, w) for g, w in zip(ln, ln_p)),
         "iteration_tail": max(_max_abs_err(g, w)
@@ -1549,10 +1556,93 @@ def _random_body_inputs(batch, carry, la_max, lb_max, seed, dev):
     return c, tb, match
 
 
+def _body_grids(label, model, st, slots):
+    """Print the grids of KI-head, KI-lines and KI-tail on this chunk, as
+    their wrappers choose them (``iteration_cuda.head_grid``,
+    ``lines_grid``)."""
+    from lara_tpu_torch.solver import iteration_cuda
+
+    b, d = model.dual_l.shape
+    sms = iteration_cuda.sm_count(model.dual_l.device)
+    steps = len(st.same_masks)
+    hg = iteration_cuda.head_grid(b, d, steps, sms)
+    lg = iteration_cuda.lines_grid(b, d, slots, st.lq.shape[1], sms)
+    why = (f" (one CTA per lane: the halo of {hg.halo} is wider than half "
+           f"the lane)" if hg.tiles == 1 else "")
+    print(f"  grids, {label}: KI-head steps {steps}, halo {hg.halo}, tile "
+          f"{hg.tile} ({hg.tiles} a lane, at most {hg.span} entries with "
+          f"the halos), {hg.ctas} CTAs{why}; KI-lines clusters of "
+          f"{lg.cluster} ({lg.dper} entries, {lg.sper} slots, {lg.qper} "
+          f"queue columns a CTA), {lg.ctas} CTAs; KI-tail one CTA per lane, "
+          f"{b} CTAs; {sms} SMs")
+
+
+def _body_layouts(label, model, st, c, tb, lb_max):
+    """KI-head and KI-lines in other layouts on the same inputs, each held
+    against its plain version (fatal on any difference; KI-head's PSSM
+    grid from :func:`_unwritten_grid`) and timed in turns with the
+    wrappers' choice (CUDA events): both on one CTA per lane, and KI-lines
+    in a cluster of 8."""
+    import torch
+
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    d = model.dual_l.shape[1]
+    grid = _unwritten_grid(model, st)
+    st_plain = st._replace(pssm=grid.clone())
+    hd_p = device_solver.head_plain(model, st_plain, c)
+    ln_p = device_solver.lines_plain(model, st, c, hd_p, tb.partner, lb_max)
+    runs = {
+        "KI-head, chosen tiles": lambda s: iteration_cuda.head(model, s, c),
+        "KI-head, one CTA a lane": lambda s: iteration_cuda.head(model, s, c,
+                                                                 tile=d),
+        "KI-lines, chosen clusters": lambda s: iteration_cuda.lines(
+            model, s, c, hd_p, tb.partner, lb_max),
+        "KI-lines, one CTA a lane": lambda s: iteration_cuda.lines(
+            model, s, c, hd_p, tb.partner, lb_max, cluster=1),
+        "KI-lines, clusters of 8": lambda s: iteration_cuda.lines(
+            model, s, c, hd_p, tb.partner, lb_max, cluster=8),
+    }
+    for name, run in runs.items():
+        st_run = st._replace(pssm=grid.clone())
+        got = run(st_run)
+        torch.cuda.synchronize()
+        if name.startswith("KI-head"):
+            err = max([_max_abs_err(st_run.pssm, st_plain.pssm)]
+                      + [_max_abs_err(g, w) for g, w in zip(got, hd_p)])
+        else:
+            err = max(_max_abs_err(g, w) for g, w in zip(got, ln_p))
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {label}: max_abs_err {err}")
+    times = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            times[name].append(_time_ms(lambda: runs[name](st), 50))
+    print(f"  layouts, {label} (max_abs_err 0 each; ms in turns): "
+          + "; ".join(f"{name} " + ", ".join(f"{t:.4f}" for t in ts)
+                      for name, ts in times.items()))
+
+
+def _unwritten_grid(model, st):
+    """A copy of the PSSM grid whose run-start cells hold PSSM_INIT + 1, a
+    value KI-head never writes, so that a run start left unwritten shows
+    as a difference; every other cell as ``_prepare`` left it."""
+    from lara_tpu_torch.types import PSSM_INIT
+
+    b, ne = model.seq_score.shape
+    grid = st.pssm.clone()
+    lane, entry = ((st.start_dst >= 0) & (st.start_dst < ne)).nonzero(
+        as_tuple=True)
+    grid.view(b, ne)[lane, st.start_dst[lane, entry]] = int(PSSM_INIT) + 1
+    return grid
+
+
 def _body_phase(label, records, dev, stats, seed):
     """KI-head, KI-lines and KI-tail against their plain versions on a
     bench chunk's model with a random carry (:func:`_random_body_inputs`),
-    timed beside their bounds."""
+    timed beside their bounds; their grids; and the other layouts of
+    KI-head and KI-lines (:func:`_body_layouts`)."""
     from lara_tpu_torch.solver import device_solver
 
     batch, how, carry0, _ = _chunk_batch(records, dev)
@@ -1561,8 +1651,11 @@ def _body_phase(label, records, dev, stats, seed):
     c, tb, match = _random_body_inputs(batch, carry0(), la_max, lb_max, seed,
                                        dev)
     b, d = batch.dual_l.shape
-    _hold_body(f"{label} B={b} D={d} random carry", batch, st, c, tb, match,
+    chunk = f"{label} B={b} D={d}"
+    _body_grids(chunk, batch, st, la_max)
+    _hold_body(f"{chunk} random carry", batch, st, c, tb, match,
                lb_max, max_nondecr, stats)
+    _body_layouts(f"{chunk} random carry", batch, st, c, tb, lb_max)
 
 
 @contextlib.contextmanager
@@ -2004,6 +2097,7 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
     print(f"  {label}: B={b} D={d} {pad}x{pad}, {n_iter} warm iterations, "
           "profiled:")
     seen_eager = None
+    in_loop = {}
     for way, prof in profiles.items():
         wall_ms = walls[way]
         device = [e for e in prof.key_averages()
@@ -2020,6 +2114,7 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
         ours = {name: sum(e.self_device_time_total for e in device
                           if f"{name}_kernel" in e.key) / n_iter
                 for name in ("dp_wave", "dp_walk", "matching_rounds") + BODY}
+        in_loop[way] = ours
         # copies of the carry into the graph's static one: none, as KI-head
         # and KI-tail write it in place
         copies = [e for e in device if "Memcpy DtoD" in e.key]
@@ -2051,6 +2146,16 @@ def _profile_phase(label, records, dev, stats, n_iter=25, env=None,
         c_tail, _daq, tb, _ln, match, *_ = body[k]["tail"]
         _hold_body(f"{label} iteration {k + 1}", model, st, c, tb, match,
                    lb_max, max_nondecr, stats, time_plain=False)
+    alone = {name: [s[2] * 1e3 for s in stats[name]
+                    if s[0].startswith(f"{label} iteration ")]
+             for name in BODY}
+    print(f"    {label}: the body's kernels in the loop (profiled, eager; "
+          "graphed) and alone (CUDA events on iterations "
+          f"{', '.join(str(k + 1) for k in sorted(body))}' own inputs), us: "
+          + "; ".join(f"{name} {in_loop.get('eager', {}).get(name, 0.0):.1f}"
+                      f"; {in_loop.get('graphed', {}).get(name, 0.0):.1f} / "
+                      + ", ".join(f"{us:.1f}" for us in alone[name])
+                      for name in BODY))
 
 
 def main() -> int:

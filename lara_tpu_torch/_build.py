@@ -251,9 +251,9 @@ def library() -> ctypes.CDLL:
         lib.lara_loop_graph_free.restype = i32
         lib.lara_loop_graph_free.argtypes = [ptr, ptr]
         lib.lara_iteration_head.restype = i32
-        lib.lara_iteration_head.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 6
+        lib.lara_iteration_head.argtypes = [ptr] * 9 + [i32] * 7 + [ptr] * 6
         lib.lara_iteration_lines.restype = i32
-        lib.lara_iteration_lines.argtypes = [ptr] * 14 + [i32] * 6 + [ptr] * 7
+        lib.lara_iteration_lines.argtypes = [ptr] * 14 + [i32] * 10 + [ptr] * 7
         lib.lara_iteration_tail.restype = i32
         lib.lara_iteration_tail.argtypes = [ctypes.POINTER(ptr), i32, i32,
                                             i32, i32, i32, ptr]

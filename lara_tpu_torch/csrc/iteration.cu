@@ -22,11 +22,22 @@
 //   bound bookkeeping with step halving, the float32 dual update,
 //   remaining, lane_active and iterations.
 //
-// Each kernel runs one CTA per lane: every lane-wide value (the scan's
-// passes, count, any_sg) needs only block barriers.  What bounds them: the
-// bytes of the [B, D] dual columns, read once or twice (KI-head's scan
-// reads D dual_l values a pass, from L1) -- microseconds at the bench's
-// shapes, where the plain versions were ~280 kernels an iteration.
+// What bounds them: the bytes of the [B, D] dual columns, read once or
+// twice -- about a microsecond at the bench's shapes -- but one CTA per
+// lane (32 CTAs on 132 SMs at B=32) left them latency-bound at 5-13x that.
+// So KI-head and KI-lines spread a lane over several CTAs:
+// * KI-head in tiles with a halo of 2^steps - 1 entries on each side, its
+//   passes over a loop-invariant packed mask (_Static.seg_mask) in place
+//   of two dual_l loads an entry and pass, the forward and backward passes
+//   side by side (one barrier a pass);
+// * KI-lines as a thread-block cluster per lane (up to 8 CTAs) where the
+//   lane is longer than 1024 entries, a thread an entry, each CTA's
+//   partial sums and slot marks read across the cluster through
+//   distributed shared memory; on shorter lanes one CTA, whose cluster
+//   launch and barriers would cost more than they save (and 16-byte loads
+//   of four entries a thread, tried, were slower: a thread's entries then
+//   wait on each other's gathers).
+// KI-tail stays one CTA per lane: its lane scalars come first.
 //
 // Arithmetic of the reference:
 // * int32 adds wrap (best_upper - best_lower starts at INFINITY -
@@ -45,10 +56,13 @@
 // that writes it, before it writes it, and a lane's scalars by thread 0
 // alone.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -56,7 +70,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNegInf = -1431655764;    // -INFINITY (types.py)
 constexpr int kPssmInit = -1431655764;  // PSSM_INIT (types.py)
 constexpr int kMaxThreads = 1024;
-constexpr int kLinesThreads = 512;
+constexpr int kLinesThreads = 1024;
 constexpr int kTailThreads = 256;
 constexpr int kMaxDevices = 64;
 
@@ -86,87 +100,134 @@ __device__ __forceinline__ uint64_t key_max(uint64_t a, uint64_t b) {
   return a > b ? a : b;
 }
 
-// KI-head.  Grid: one CTA per lane; shared memory: two buffers of d keys.
-// The scan runs its passes forward (the window [i - 2^k + 1, i]), parks
-// the forward tops in run_p / run_idx, then runs them backward from the
-// masked profits again and combines: _run_top's result for any dual_l
-// (a neighbour 2^k away joins where its dual_l is equal, as
-// _same_segment_masks has it), also where 2^steps does not cover a run.
+// KI-head.  Grid: `tiles` CTAs per lane (lane = blockIdx.x / tiles), CTA t
+// owning the entries [t * tile, (t + 1) * tile) of its lane and reading a
+// halo of H = 2^steps - 1 entries on each side, clipped to [0, d): the
+// extended tile [lo, hi).  After k passes the forward top at i depends
+// only on the entries [i - 2^k + 1, i] and the backward top only on
+// [i, i + 2^k - 1], so every value an owned entry's output uses lies in the
+// extended tile: a neighbour outside it counts as the fill, which is wrong
+// only at entries no owned output reads (and right at 0 and d, where the
+// reference fills too).  Exact for any tile, any steps and any dual_l.
+// The passes join a neighbour 2^k away where seg_mask, the packed
+// _same_segment_masks (bit 2k: the left neighbour, bit 2k + 1: the right),
+// says so.  Shared memory: the forward and the backward keys of the
+// extended tile, two buffers each (`both`: one barrier a pass for the two
+// directions), or, where that does not fit, two buffers that run the
+// forward passes, park the owned tops in run_p / run_idx and run the
+// backward passes after them.  The halo reads sscore, dual, dvalid and
+// seg_mask only: never dual_at_queue, which may be daq_out.
 __global__ void __launch_bounds__(kMaxThreads)
     iteration_head_kernel(const int* __restrict__ sscore, const int* dual,
                           const int* dual_at_queue,
                           const bool* __restrict__ dvalid,
                           const int* __restrict__ dual_l,
+                          const uint64_t* __restrict__ seg_mask,
                           const bool* __restrict__ lane_active,
                           const int* __restrict__ seq_score,
                           const bool* __restrict__ active, int d, int ne,
-                          int steps, int* daq_out, int* __restrict__ run_p,
+                          int steps, int tile, int tiles, int both,
+                          int* daq_out, int* __restrict__ run_p,
                           int* __restrict__ run_idx,
                           bool* __restrict__ is_top,
                           int* __restrict__ pssm) {
   extern __shared__ uint64_t keys[];
-  const int lane = blockIdx.x;
+  const int lane = blockIdx.x / tiles;
+  const int own_lo = (blockIdx.x % tiles) * tile;
+  const int own_hi = d - own_lo > tile ? own_lo + tile : d;
+  const int halo = (1 << steps) - 1;
+  const int lo = own_lo > halo ? own_lo - halo : 0;
+  const int hi = d - own_hi > halo ? own_hi + halo : d;
+  const int len = hi - lo;
   const size_t row = static_cast<size_t>(lane) * d;
   sscore += row;
   dual += row;
   dual_at_queue += row;
   dvalid += row;
   dual_l += row;
+  seg_mask += row;
   daq_out += row;
   run_p += row;
   run_idx += row;
   is_top += row;
-  const bool act = lane_active[lane];
   const uint64_t fill = top_key(kNegInf, d);
 
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const int du = dual[i];
-    const int q = dual_at_queue[i];
-    daq_out[i] = act ? du : q;
-    keys[i] = top_key(dvalid[i] ? wadd(sscore[i], du) : kNegInf, i);
+  uint64_t* f_cur = keys;
+  uint64_t* f_nxt = keys + len;
+  uint64_t* b_cur = both ? keys + 2 * len : keys;
+  uint64_t* b_nxt = both ? keys + 3 * len : keys + len;
+  for (int x = threadIdx.x; x < len; x += blockDim.x) {
+    const int i = lo + x;
+    const uint64_t key =
+        top_key(dvalid[i] ? wadd(sscore[i], dual[i]) : kNegInf, i);
+    f_cur[x] = key;
+    if (both) b_cur[x] = key;
   }
   __syncthreads();
 
-  uint64_t* cur = keys;
-  uint64_t* nxt = keys + d;
-  for (int dir = 0; dir < 2; ++dir) {
-    for (int pass = 0, s = 1; pass < steps; ++pass, s <<= 1) {
-      for (int i = threadIdx.x; i < d; i += blockDim.x) {
-        const int j = dir == 0 ? i - s : i + s;
-        const bool same = j >= 0 && j < d && dual_l[j] == dual_l[i];
-        nxt[i] = key_max(cur[i], same ? cur[j] : fill);
+  for (int round = 0; round < (both ? 1 : 2); ++round) {
+    const bool fwd = both || round == 0;
+    const bool bwd = both || round == 1;
+    for (int pass = 0; pass < steps; ++pass) {
+      const int s = 1 << pass;
+      for (int x = threadIdx.x; x < len; x += blockDim.x) {
+        const uint64_t m = seg_mask[lo + x] >> (2 * pass);
+        if (fwd)
+          f_nxt[x] = key_max(f_cur[x], (m & 1) && x >= s ? f_cur[x - s] : fill);
+        if (bwd)
+          b_nxt[x] =
+              key_max(b_cur[x], (m & 2) && x < len - s ? b_cur[x + s] : fill);
       }
       __syncthreads();
-      uint64_t* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-    if (dir == 0) {
-      // park the forward tops (each thread reads back only its own
-      // entries), and start the backward scan from the masked profits
-      for (int i = threadIdx.x; i < d; i += blockDim.x) {
-        run_p[i] = key_profit(cur[i]);
-        run_idx[i] = key_index(cur[i]);
-        cur[i] = top_key(dvalid[i] ? wadd(sscore[i], dual[i]) : kNegInf, i);
+      if (fwd) {
+        uint64_t* t = f_cur;
+        f_cur = f_nxt;
+        f_nxt = t;
       }
+      if (bwd) {
+        uint64_t* t = b_cur;
+        b_cur = b_nxt;
+        b_nxt = t;
+      }
+    }
+    if (!both && round == 0) {
+      // park the owned forward tops, and start the backward passes from
+      // the masked profits in the same buffers
+      for (int i = own_lo + threadIdx.x; i < own_hi; i += blockDim.x) {
+        run_p[i] = key_profit(f_cur[i - lo]);
+        run_idx[i] = key_index(f_cur[i - lo]);
+      }
+      __syncthreads();
+      for (int x = threadIdx.x; x < len; x += blockDim.x) {
+        const int i = lo + x;
+        f_cur[x] = top_key(dvalid[i] ? wadd(sscore[i], dual[i]) : kNegInf, i);
+      }
+      b_cur = f_cur;
+      b_nxt = f_nxt;
       __syncthreads();
     }
   }
 
+  const bool act = lane_active[lane];
   seq_score += static_cast<size_t>(lane) * ne;
   active += static_cast<size_t>(lane) * ne;
   pssm += static_cast<size_t>(lane) * ne;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const uint64_t top = key_max(top_key(run_p[i], run_idx[i]), cur[i]);
+  for (int i = own_lo + threadIdx.x; i < own_hi; i += blockDim.x) {
+    const uint64_t fwd_top =
+        both ? f_cur[i - lo] : top_key(run_p[i], run_idx[i]);
+    const uint64_t top = key_max(fwd_top, b_cur[i - lo]);
     const int p = key_profit(top);
     run_p[i] = p;
     run_idx[i] = key_index(top);
+    const int du = dual[i];
+    const int q = dual_at_queue[i];
+    daq_out[i] = act ? du : q;
     const bool valid = dvalid[i];
-    is_top[i] = valid && wadd(sscore[i], dual[i]) == p;
-    // a run's first entry carries its aggregate into the PSSM
+    is_top[i] = valid && wadd(sscore[i], du) == p;
+    // a run's first entry (its left neighbour, or -1 before entry 0, is
+    // another edge: bit 0 clear) carries its aggregate into the PSSM
     const int cell = dual_l[i];
-    const int prev = i == 0 ? -1 : dual_l[i - 1];
-    if (valid && cell != prev && cell >= 0 && cell < ne) {
+    if (valid && !(seg_mask[i] & 1) && cell >= 0 && cell < ne) {
       pssm[cell] =
           active[cell] ? wadd(seq_score[cell], p > 0 ? p : 0) : kPssmInit;
     }
@@ -206,88 +267,170 @@ __device__ __forceinline__ void block_sums(uint32_t& v, uint32_t& w,
   }
 }
 
-// KI-lines.  Grid: one CTA per lane; shared memory: the lane's partner row
-// (slots ints), pick (d bytes) and the consistent branch's slot marks
-// (slots bytes).
+// KI-lines' [B, D] inputs and the sg output.
+struct LinesRows {
+  const int* dual_l;
+  const int* dual_m;
+  const int* rev;
+  const bool* dvalid;
+  const int* sscore;
+  const int* dual;
+  const int* run_p;
+  const int* run_idx;
+  const bool* is_top;
+  int* sg;
+};
+
+// The two halves of a cluster barrier (barrier.cluster): a CTA's threads
+// arrive, releasing their shared-memory writes, and later wait, acquiring
+// the others'; work between the two overlaps the barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// KI-lines.  Grid: a cluster of C CTAs per lane (lane = blockIdx.x / C),
+// or one CTA (C = 1, no cluster) where the lane is short.  Rank r owns the
+// entries [r * dper, (r + 1) * dper), the line slots [r * sper, ...) and
+// the queue columns [r * qper, ...) of its lane; each CTA keeps the lane's
+// whole partner row in its own shared memory for in_lines.  pick of the
+// reverse entry r is a function of entry r alone, so it is computed from
+// r's inputs, gathered with the entry's own loads (reading it from the
+// owning CTA's shared memory, after a cluster barrier, was slower on the
+// card: PERF.md).  Each CTA marks the consistent branch's slots in its own
+// shared memory and keeps its partial sg_pos count and sum there; across
+// one cluster barrier (K3's candidate tests run between its arrive and its
+// wait) every CTA adds up the C partials (DSMEM reads) into count,
+// consistent_sum and any_sg, and the owner of each slot ORs the C marks.
+// A second barrier, waited for at the very end, keeps every CTA's shared
+// memory alive until the others are done reading it.  Shared memory: the
+// partner row (slots ints), the slot marks (slots bytes) and the owned
+// columns' candidates (qper bytes).
 __global__ void __launch_bounds__(kLinesThreads)
     iteration_lines_kernel(
-        const int* __restrict__ partner, const int* __restrict__ dual_l,
-        const int* __restrict__ dual_m, const int* __restrict__ rev,
-        const bool* __restrict__ dvalid, const int* __restrict__ sscore,
-        const int* __restrict__ dual, const int* __restrict__ run_p,
-        const int* __restrict__ run_idx, const bool* __restrict__ is_top,
+        const int* __restrict__ partner, LinesRows rows,
         const int* __restrict__ lq, const int* __restrict__ mq,
         const int* __restrict__ nc_base,
         const bool* __restrict__ lane_active, int d, int slots, int cw,
-        int lb_max, int ne, int* __restrict__ slot_edge,
-        int* __restrict__ sg, int* __restrict__ count,
+        int lb_max, int ne, int dper, int sper, int qper,
+        int* __restrict__ slot_edge, int* __restrict__ count,
         int* __restrict__ consistent_sum,
         bool* __restrict__ matched_cons_slot, bool* __restrict__ cand_q) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   __shared__ uint32_t scratch[2 * kLinesThreads / 32];
-  __shared__ bool any_sg;
+  __shared__ uint32_t partial[2];  // this CTA's sg_pos count and sum
+  __shared__ bool live_s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = blockIdx.x / C;
   int* part = smem;
-  uint8_t* pick = reinterpret_cast<uint8_t*>(part + slots);
-  uint8_t* marks = pick + d;
-  const int lane = blockIdx.x;
+  uint8_t* marks = reinterpret_cast<uint8_t*>(part + slots);
+  uint8_t* cand = marks + slots;
   const size_t row = static_cast<size_t>(lane) * d;
   const size_t srow = static_cast<size_t>(lane) * slots;
   const size_t qrow = static_cast<size_t>(lane) * cw;
+  const int e_lo = min(d, rank * dper), e_hi = min(d, e_lo + dper);
+  const int s_lo = min(slots, rank * sper), s_hi = min(slots, s_lo + sper);
+  const int q_lo = min(cw, rank * qper), q_hi = min(cw, q_lo + qper);
 
   for (int s = threadIdx.x; s < slots; s += blockDim.x) {
     const int p = partner[srow + s];
     part[s] = p;
     marks[s] = 0;
-    slot_edge[srow + s] = p >= 0 ? s * lb_max + p : ne;
+    if (s >= s_lo && s < s_hi)
+      slot_edge[srow + s] = p >= 0 ? s * lb_max + p : ne;
   }
   __syncthreads();
 
-  // pick, and the consistent branch at each run's unique top entry
-  uint32_t csum = 0;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const int l = dual_l[row + i];
-    const int m = dual_m[row + i];
+  // pick and its reverse, the subgradient (cycle(i) = pick(rev(i))), and
+  // the consistent branch at each run's unique top entry
+  uint32_t pos = 0, csum = 0;
+  for (int i = e_lo + threadIdx.x; i < e_hi; i += blockDim.x) {
+    const size_t at = row + i;
+    const int l = rows.dual_l[at];
+    const int m = rows.dual_m[at];
+    const int ss = rows.sscore[at];
+    const int du = rows.dual[at];
+    const int rp = rows.run_p[at];
+    const int ri = rows.run_idx[at];
+    const bool valid = rows.dvalid[at];
+    const bool top = rows.is_top[at];
+    const int r = rows.rev[at];
+    // the reverse entry's inputs, loaded unconditionally (entry 0 of the
+    // row where r is out of range) so that they issue before any store
+    const bool r_ok = r >= 0 && r < d;
+    const size_t r_at = row + (r_ok ? r : 0);
+    const int r_l = rows.dual_l[r_at];
+    const int r_rp = rows.run_p[r_at];
+    const bool r_top = rows.is_top[r_at];
     const bool l_in = in_lines(part, l, lb_max, slots);
-    pick[i] = l_in && run_p[row + i] >= 0 && is_top[row + i];
-    const int profit = wadd(sscore[row + i], dual[row + i]);
+    const bool p = l_in && rp >= 0 && top;
+    const bool p_rev =
+        r_ok && in_lines(part, r_l, lb_max, slots) && r_rp >= 0 && r_top;
+    const bool sg_pos = p && !p_rev;
+    pos += sg_pos;
+    rows.sg[at] = static_cast<int>(sg_pos) - static_cast<int>(p_rev && !p);
+    const int profit = wadd(ss, du);
     const bool tis = profit < 0 || (profit == 0 && l < m);
-    if (dvalid[row + i] && i == run_idx[row + i] && l_in && !tis) {
-      csum += static_cast<uint32_t>(sscore[row + i]);
+    if (valid && i == ri && l_in && !tis) {
+      csum += static_cast<uint32_t>(ss);
       marks[l / lb_max] = 1;
       if (in_lines(part, m, lb_max, slots)) marks[m / lb_max] = 1;
     }
   }
-  __syncthreads();
-
-  // the subgradient: cycle(i) = pick(rev(i))
-  uint32_t pos = 0;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const int r = rev[row + i];
-    const bool p = pick[i];
-    const bool p_rev = r >= 0 && r < d && pick[r];
-    const bool sg_pos = p && !p_rev;
-    sg[row + i] = static_cast<int>(sg_pos) - static_cast<int>(p_rev && !p);
-    pos += sg_pos;
-  }
   block_sums(pos, csum, scratch);
   if (threadIdx.x == 0) {
-    const int cnt = static_cast<int>(2u * pos);
-    count[lane] = cnt;
-    consistent_sum[lane] = static_cast<int>(csum);
-    any_sg = cnt > 0;
+    partial[0] = pos;
+    partial[1] = csum;
   }
-  __syncthreads();
-
-  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
-    matched_cons_slot[srow + s] = part[s] >= 0 && marks[s];
-  }
-  const bool live = any_sg && lane_active[lane];
+  if (C > 1) cluster_arrive();
+  // K3's candidates of the owned columns, all but `live`
   const int nc = nc_base[lane];
-  for (int j = threadIdx.x; j < cw; j += blockDim.x) {
-    cand_q[qrow + j] = live && j < nc &&
-                       in_lines(part, lq[qrow + j], lb_max, slots) &&
-                       in_lines(part, mq[qrow + j], lb_max, slots);
+  for (int j = q_lo + threadIdx.x; j < q_hi; j += blockDim.x) {
+    cand[j - q_lo] = j < nc && in_lines(part, lq[qrow + j], lb_max, slots) &&
+                     in_lines(part, mq[qrow + j], lb_max, slots);
   }
+  if (C > 1) {
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+
+  if (threadIdx.x == 0) {
+    uint32_t lane_pos = 0, lane_sum = 0;
+    for (int k = 0; k < C; ++k) {
+      const uint32_t* other =
+          k == rank ? partial : cluster.map_shared_rank(partial, k);
+      lane_pos += other[0];
+      lane_sum += other[1];
+    }
+    const int cnt = static_cast<int>(2u * lane_pos);
+    if (rank == 0) {
+      count[lane] = cnt;
+      consistent_sum[lane] = static_cast<int>(lane_sum);
+    }
+    live_s = cnt > 0 && lane_active[lane];
+  }
+  // a slot is marked where any CTA of the cluster marked it
+  for (int s = s_lo + threadIdx.x; s < s_hi; s += blockDim.x) {
+    uint8_t marked = 0;
+    for (int k = 0; k < C; ++k)
+      marked |= (k == rank ? marks : cluster.map_shared_rank(marks, k))[s];
+    matched_cons_slot[srow + s] = part[s] >= 0 && marked;
+  }
+  // done reading the other CTAs' shared memory
+  if (C > 1) cluster_arrive();
+  __syncthreads();
+  const bool live = live_s;
+  for (int j = q_lo + threadIdx.x; j < q_hi; j += blockDim.x) {
+    cand_q[qrow + j] = live && cand[j - q_lo];
+  }
+  // no CTA may leave while another still reads its shared memory
+  if (C > 1) cluster_wait();
 }
 
 // KI-tail's tensors, in the order of lara_iteration_tail's pointer array
@@ -448,66 +591,100 @@ cudaError_t opt_in_smem(Kernel kernel, std::atomic<int>* limits,
 std::atomic<int> head_limit[kMaxDevices];
 std::atomic<int> lines_limit[kMaxDevices];
 
-size_t head_smem(int d) {
-  return static_cast<size_t>(2) * d * sizeof(uint64_t);
-}
-
-size_t lines_smem(int d, int slots) {
-  return static_cast<size_t>(slots) * sizeof(int) + d + slots;
-}
-
 }  // namespace
 
 extern "C" {
 
 // KI-head over batch lanes of d dual entries and ne PSSM cells, steps
-// doubling passes.  daq_out may be dual_at_queue.
+// doubling passes, `tiles` CTAs a lane of `tile` entries each, an extended
+// tile of at most `span` entries (iteration_cuda.head_grid chooses them;
+// this only checks that they cover the lane and the halos).  daq_out may
+// be dual_at_queue.
 int lara_iteration_head(const int* sscore, const int* dual,
                         const int* dual_at_queue, const bool* dvalid,
-                        const int* dual_l, const bool* lane_active,
-                        const int* seq_score, const bool* active, int batch,
-                        int d, int ne, int steps, int* daq_out, int* run_p,
-                        int* run_idx, bool* is_top, int* pssm, void* stream) {
-  if (batch < 1 || d < 1 || ne < 1 || steps < 0 || steps > 30)
+                        const int* dual_l, const uint64_t* seg_mask,
+                        const bool* lane_active, const int* seq_score,
+                        const bool* active, int batch, int d, int ne,
+                        int steps, int tile, int tiles, int span,
+                        int* daq_out, int* run_p, int* run_idx, bool* is_top,
+                        int* pssm, void* stream) {
+  if (batch < 1 || d < 1 || ne < 1 || steps < 1 || steps > 30 || tile < 1 ||
+      tile > d || tiles < 1 || static_cast<long long>(tiles) * tile < d ||
+      static_cast<long long>(tiles - 1) * tile >= d || span > d ||
+      (span < d && span < tile + 2 * ((1LL << steps) - 1)) ||
+      static_cast<long long>(batch) * tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   int limit = 0;
   cudaError_t err = opt_in_smem(iteration_head_kernel, head_limit, &limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = head_smem(d);
+  const size_t buffer = static_cast<size_t>(span) * sizeof(uint64_t);
+  const int both = 4 * buffer <= static_cast<size_t>(limit);
+  const size_t smem = (both ? 4 : 2) * buffer;
   if (smem > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = d >= kMaxThreads ? kMaxThreads : (d + 31) / 32 * 32;
-  iteration_head_kernel<<<batch, threads, smem,
+  const int threads =
+      span >= kMaxThreads ? kMaxThreads : (span + 31) / 32 * 32;
+  iteration_head_kernel<<<batch * tiles, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      sscore, dual, dual_at_queue, dvalid, dual_l, lane_active, seq_score,
-      active, d, ne, steps, daq_out, run_p, run_idx, is_top, pssm);
+      sscore, dual, dual_at_queue, dvalid, dual_l, seg_mask, lane_active,
+      seq_score, active, d, ne, steps, tile, tiles, both, daq_out, run_p,
+      run_idx, is_top, pssm);
   return static_cast<int>(cudaGetLastError());
 }
 
-// KI-lines over batch lanes: d dual entries, slots line slots (la_max), cw
-// queue columns, flat edge ids a * lb_max + b under ne.
+// KI-lines over batch lanes, a cluster of `cluster` CTAs each (1 to 8): d
+// dual entries, slots line slots (la_max), cw queue columns, flat edge ids
+// a * lb_max + b under ne; each CTA owns dper entries, sper slots and qper
+// columns (iteration_cuda.lines_grid chooses them; this only checks that
+// the cluster covers the lane).
 int lara_iteration_lines(const int* partner, const int* dual_l,
                          const int* dual_m, const int* rev, const bool* dvalid,
                          const int* sscore, const int* dual, const int* run_p,
                          const int* run_idx, const bool* is_top, const int* lq,
                          const int* mq, const int* nc_base,
                          const bool* lane_active, int batch, int d, int slots,
-                         int cw, int lb_max, int ne, int* slot_edge, int* sg,
+                         int cw, int lb_max, int ne, int cluster, int dper,
+                         int sper, int qper, int* slot_edge, int* sg,
                          int* count, int* consistent_sum,
-                         bool* matched_cons_slot, bool* cand_q, void* stream) {
-  if (batch < 1 || d < 1 || slots < 1 || cw < 1 || lb_max < 1)
+                         bool* matched_cons_slot, bool* cand_q,
+                         void* stream) {
+  if (batch < 1 || d < 1 || slots < 1 || cw < 1 || lb_max < 1 ||
+      cluster < 1 || cluster > 8 || dper < 1 || sper < 1 || qper < 1 ||
+      static_cast<long long>(dper) * cluster < d ||
+      static_cast<long long>(sper) * cluster < slots ||
+      static_cast<long long>(qper) * cluster < cw ||
+      static_cast<long long>(batch) * cluster > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   int limit = 0;
-  cudaError_t err = opt_in_smem(iteration_lines_kernel, lines_limit, &limit);
+  cudaError_t err =
+      opt_in_smem(iteration_lines_kernel, lines_limit, &limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = lines_smem(d, slots);
+  const size_t smem =
+      static_cast<size_t>(slots) * (sizeof(int) + 1) + qper;
   if (smem > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);
-  iteration_lines_kernel<<<batch, kLinesThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      partner, dual_l, dual_m, rev, dvalid, sscore, dual, run_p, run_idx,
-      is_top, lq, mq, nc_base, lane_active, d, slots, cw, lb_max, ne,
-      slot_edge, sg, count, consistent_sum, matched_cons_slot, cand_q);
+  const LinesRows rows{dual_l, dual_m, rev,     dvalid, sscore,
+                       dual,   run_p,  run_idx, is_top, sg};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * cluster);
+  // a thread an entry (up to 1024): a thread's second entry waits for its
+  // first one's gathers
+  cfg.blockDim =
+      dim3(dper >= kLinesThreads ? kLinesThreads : (dper + 31) / 32 * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, iteration_lines_kernel, partner, rows, lq,
+                           mq, nc_base, lane_active, d, slots, cw, lb_max, ne,
+                           dper, sper, qper, slot_edge,
+                           count, consistent_sum, matched_cons_slot, cand_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -177,6 +177,17 @@ def _same_segment_masks(seg: torch.Tensor, steps: int):
     return masks
 
 
+def _packed_mask(same_masks) -> torch.Tensor:
+    """``same_masks`` as one int64 per entry: bit 2k is the left neighbour
+    2^k away in the same run, bit 2k + 1 the right one (KI-head's mask;
+    at most 30 shifts, so 60 bits)."""
+    r0 = same_masks[0][0]
+    packed = torch.zeros(r0.shape, dtype=torch.int64, device=r0.device)
+    for k, (same_r, same_l) in enumerate(same_masks):
+        packed |= (same_r.long() << (2 * k)) | (same_l.long() << (2 * k + 1))
+    return packed
+
+
 def _run_top(p, idx, same_masks, p_fill, idx_fill):
     """Segmented doubling scan with the queue-top monoid: max profit, ties
     to the smallest entry index (== smallest partner id within a run), the
@@ -256,6 +267,7 @@ class _Static(NamedTuple):
     """Loop-invariant data of one dispatch."""
 
     same_masks: List[Tuple[torch.Tensor, torch.Tensor]]
+    seg_mask: torch.Tensor   # [B, D] int64: same_masks packed
     iota_d: torch.Tensor     # [B, D]
     start_dst: torch.Tensor  # [B, D] run-start cell, NE elsewhere
     lq: torch.Tensor         # [B, CW] queue-ordered l < m candidates
@@ -295,8 +307,10 @@ def _prepare(model: BatchModel, la_max: int, lb_max: int,
     corder = torch.argsort(ckey, dim=1)
     cw = max(1, d // 2)
     corder = corder[:, :cw]
+    same_masks = _same_segment_masks(model.dual_l, steps)
     return _Static(
-        same_masks=_same_segment_masks(model.dual_l, steps),
+        same_masks=same_masks,
+        seg_mask=_packed_mask(same_masks),
         iota_d=iota_d,
         start_dst=start_dst,
         lq=lq_s.gather(1, corder).contiguous(),

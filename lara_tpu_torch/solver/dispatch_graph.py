@@ -201,9 +201,11 @@ def key_of(model: device_solver.BatchModel, go: int, ge: int, la_max: int,
 
 
 #: the invariants that depend on the model (``pssm``: the PSSM grid whose
-#: run-start cells each iteration rewrites); the others (iota_d, iota_cw,
-#: slot_base, plan) depend on the key only
-_MODEL_INVARIANTS = ("start_dst", "lq", "mq", "wq", "nc_base", "pssm")
+#: run-start cells each iteration rewrites; ``seg_mask``: KI-head's packed
+#: run masks); the others (iota_d, iota_cw, slot_base, plan) depend on the
+#: key only
+_MODEL_INVARIANTS = ("seg_mask", "start_dst", "lq", "mq", "wq", "nc_base",
+                     "pssm")
 
 
 def _seen(tensors) -> list:

@@ -9,11 +9,19 @@ plain version in :mod:`lara_tpu_torch.solver.device_solver`
 :func:`~lara_tpu_torch.solver.device_solver.tail_plain`), which
 ``device_solver._iteration`` runs for CPU tensors.  An output may be the
 carry's own tensor (the dispatch graph's static carry, updated in place).
+
+KI-head and KI-lines spread a lane over several CTAs, so that the grid
+fills the card: KI-head in tiles of a lane's dual entries with a halo on
+each side (:func:`head_grid`), KI-lines as a thread-block cluster per long
+lane (:func:`lines_grid`).  Both choosers are pure functions of the shapes
+and the card's SM count, and own the grid: the kernels' entry points take
+it as given and only check that it covers the lane.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +35,82 @@ BOOL = torch.bool
 TAIL_CARRY = ("dual", "step_factor", "nondecr", "remaining", "lane_active",
               "best_lower", "best_upper", "best_score", "best_partner",
               "best_nlines", "best_matched", "iterations")
+
+
+class HeadGrid(NamedTuple):
+    """KI-head's launch: ``tiles`` CTAs per lane, each owning ``tile``
+    entries and reading ``halo`` more on each side (clipped to the lane),
+    at most ``span`` entries in all."""
+
+    tile: int
+    halo: int
+    tiles: int
+    span: int
+    ctas: int
+
+
+def head_grid(b: int, d: int, steps: int, sms: int,
+              tile: int = 0) -> HeadGrid:
+    """KI-head's tiles for ``b`` lanes of ``d`` entries and ``steps``
+    doubling passes on ``sms`` SMs: as many tiles per lane as give every SM
+    two CTAs, none narrower than twice its halo 2**steps - 1; one CTA per
+    lane where the halo is that large.  ``tile`` > 0 fixes the tile instead
+    (any tile is exact)."""
+    halo = 2 ** steps - 1
+    if tile <= 0:
+        per_lane = max(1, min(2 * sms // max(1, b), d // max(1, 2 * halo)))
+        tile = -(-d // per_lane)
+    tile = min(tile, d)
+    tiles = -(-d // tile)
+    return HeadGrid(tile, halo, tiles, min(d, tile + 2 * halo), b * tiles)
+
+
+class LinesGrid(NamedTuple):
+    """KI-lines' launch: a cluster of ``cluster`` CTAs per lane; rank r owns
+    ``dper`` dual entries, ``sper`` line slots and ``qper`` queue columns
+    from r times each."""
+
+    cluster: int
+    dper: int
+    sper: int
+    qper: int
+    ctas: int
+
+
+#: the largest portable thread-block cluster
+MAX_CLUSTER = 8
+#: the most entries of a lane that KI-lines runs on one CTA, and the
+#: entries of each CTA of a cluster (a thread an entry)
+LINES_ONE_CTA = 1024
+LINES_PER_CTA = 512
+
+
+def lines_split(d: int, slots: int, cw: int, cluster: int):
+    """(entries, slots, queue columns) per CTA of a cluster of
+    ``cluster``."""
+    return -(-d // cluster), -(-slots // cluster), -(-cw // cluster)
+
+
+def lines_grid(b: int, d: int, slots: int, cw: int, sms: int,
+               cluster: int = 0) -> LinesGrid:
+    """KI-lines' clusters for ``b`` lanes of ``d`` entries on ``sms`` SMs:
+    one CTA per lane up to :data:`LINES_ONE_CTA` entries (a cluster's
+    launch and barriers cost more than they save there), else a cluster of
+    :data:`LINES_PER_CTA` entries a CTA, at most :data:`MAX_CLUSTER` CTAs
+    and two CTAs an SM.  ``cluster`` > 0 fixes it instead."""
+    if cluster <= 0:
+        cluster = 1 if d <= LINES_ONE_CTA else min(
+            MAX_CLUSTER, -(-d // LINES_PER_CTA), max(1, 2 * sms // max(1, b)))
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"KI-lines runs clusters of 1 to {MAX_CLUSTER} "
+                         f"CTAs, not {cluster}")
+    return LinesGrid(cluster, *lines_split(d, slots, cw, cluster),
+                     b * cluster)
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _require_rows(tensors, dtype, shape, dev) -> None:
@@ -43,10 +127,11 @@ def _smem_check(name: str, nbytes: int, dev: torch.device) -> None:
                          f"lane, more than the card's {limit}")
 
 
-def head(model, st, c, dual_at_queue=None):
+def head(model, st, c, dual_at_queue=None, tile: int = 0):
     """KI-head: ``device_solver._Head`` of ``(model, st, c)``, writing the
     run-start cells of ``st.pssm``.  ``dual_at_queue``, where given, gets
-    the new ``dual_at_queue`` (it may be ``c.dual_at_queue``)."""
+    the new ``dual_at_queue`` (it may be ``c.dual_at_queue``); ``tile``
+    fixes the tile (:func:`head_grid`)."""
     from lara_tpu_torch.solver.device_solver import _Head
 
     b, d = model.dual_l.shape
@@ -56,6 +141,7 @@ def head(model, st, c, dual_at_queue=None):
                    ("dual_at_queue", c.dual_at_queue),
                    ("dual_l", model.dual_l)), I32, (b, d), dev)
     _build.require(model.dvalid, "dvalid", BOOL, (b, d), dev)
+    _build.require(st.seg_mask, "seg_mask", torch.int64, (b, d), dev)
     _build.require(c.lane_active, "lane_active", BOOL, (b,), dev)
     _build.require(model.seq_score, "seq_score", I32, (b, ne), dev)
     _build.require(model.active, "active", BOOL, (b, ne), dev)
@@ -66,7 +152,9 @@ def head(model, st, c, dual_at_queue=None):
     steps = len(st.same_masks)
     if not 0 < steps <= 30:
         raise ValueError(f"KI-head runs 1 to 30 doubling passes, not {steps}")
-    _smem_check("KI-head", 16 * d, dev)
+    grid = head_grid(b, d, steps, sm_count(dev), tile)
+    # two buffers of keys (four where they fit: csrc/iteration.cu)
+    _smem_check("KI-head", 16 * grid.span, dev)
     if dual_at_queue is None:
         dual_at_queue = torch.empty((b, d), dtype=I32, device=dev)
     _build.require(dual_at_queue, "dual_at_queue out", I32, (b, d), dev)
@@ -77,19 +165,22 @@ def head(model, st, c, dual_at_queue=None):
         rc = _build.library().lara_iteration_head(
             model.sscore.data_ptr(), c.dual.data_ptr(),
             c.dual_at_queue.data_ptr(), model.dvalid.data_ptr(),
-            model.dual_l.data_ptr(), c.lane_active.data_ptr(),
-            model.seq_score.data_ptr(), model.active.data_ptr(), b, d, ne,
-            steps, dual_at_queue.data_ptr(), run_p.data_ptr(),
-            run_idx.data_ptr(), is_top.data_ptr(), st.pssm.data_ptr(),
+            model.dual_l.data_ptr(), st.seg_mask.data_ptr(),
+            c.lane_active.data_ptr(), model.seq_score.data_ptr(),
+            model.active.data_ptr(), b, d, ne, steps, grid.tile,
+            grid.tiles, grid.span, dual_at_queue.data_ptr(),
+            run_p.data_ptr(), run_idx.data_ptr(), is_top.data_ptr(),
+            st.pssm.data_ptr(),
             _build.stream_of(c.dual))
         _build.check(rc, "iteration_head")
         _build.count("iteration_head")
     return _Head(dual_at_queue, run_p, run_idx, is_top)
 
 
-def lines(model, st, c, hd, partner, lb_max: int):
+def lines(model, st, c, hd, partner, lb_max: int, cluster: int = 0):
     """KI-lines: ``device_solver._Lines`` from the head ``hd`` and the
-    alignment's ``partner`` [B, S]."""
+    alignment's ``partner`` [B, S].  ``cluster`` fixes the CTAs per lane
+    (:func:`lines_grid`)."""
     from lara_tpu_torch.solver.device_solver import _Lines
 
     b, d = model.dual_l.shape
@@ -107,7 +198,8 @@ def lines(model, st, c, hd, partner, lb_max: int):
     _require_rows((("lq", st.lq), ("mq", st.mq)), I32, (b, cw), dev)
     _build.require(st.nc_base, "nc_base", I32, (b,), dev)
     _build.require(c.lane_active, "lane_active", BOOL, (b,), dev)
-    _smem_check("KI-lines", 5 * slots + d, dev)
+    grid = lines_grid(b, d, slots, cw, sm_count(dev), cluster)
+    _smem_check("KI-lines", 5 * slots + grid.qper, dev)
     slot_edge = torch.empty((b, slots), dtype=I32, device=dev)
     sg = torch.empty((b, d), dtype=I32, device=dev)
     count = torch.empty((b,), dtype=I32, device=dev)
@@ -122,9 +214,10 @@ def lines(model, st, c, hd, partner, lb_max: int):
             c.dual.data_ptr(), hd.run_p.data_ptr(), hd.run_idx.data_ptr(),
             hd.is_top.data_ptr(), st.lq.data_ptr(), st.mq.data_ptr(),
             st.nc_base.data_ptr(), c.lane_active.data_ptr(), b, d, slots, cw,
-            int(lb_max), ne, slot_edge.data_ptr(), sg.data_ptr(),
-            count.data_ptr(), consistent_sum.data_ptr(),
-            matched_cons_slot.data_ptr(), cand_q.data_ptr(),
+            int(lb_max), ne, grid.cluster, grid.dper, grid.sper, grid.qper,
+            slot_edge.data_ptr(), sg.data_ptr(), count.data_ptr(),
+            consistent_sum.data_ptr(), matched_cons_slot.data_ptr(),
+            cand_q.data_ptr(),
             _build.stream_of(c.dual))
         _build.check(rc, "iteration_lines")
         _build.count("iteration_lines")

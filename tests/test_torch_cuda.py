@@ -1207,11 +1207,21 @@ def test_k1_graph_replays_after_a_smaller_launch(cuda):
 # (b, la_max, lb_max, d, seed, hub, scan_steps): tiny, ragged with a
 # 12-partner run, the tRNA chunk's B=128 D=1024 96x96, a 40-partner run
 # under a 2-pass scan, the ~300 nt chunk, and a 16S-sized D=3072 with a
-# 60-partner run under 3 passes
+# 60-partner run under 3 passes (KI-head: one CTA per lane at full depth,
+# else tiles; KI-lines: one CTA per lane up to D=1024, else a cluster);
+# then one lane in 256 tiles of 8 entries (halo 3) under a 30-partner run,
+# in a cluster of 4; B=8 D=3072 in 33 tiles a lane (halo 15); B=6 D=3072
+# in 24 tiles a lane under 6 passes (halo 63); and one lane of D=8192 at
+# full depth, whose keys take the two-buffer scan (four do not fit), in a
+# cluster of 8
 ITERATION_CASES = [(3, 20, 17, 64, 1, 0, 0), (5, 33, 40, 300, 2, 12, 0),
                    (128, 96, 96, 1024, 3, 0, 0), (4, 96, 96, 1024, 5, 40, 2),
                    (32, 320, 320, 1024, 6, 0, 0),
-                   (3, 200, 150, 3072, 7, 60, 3)]
+                   (3, 200, 150, 3072, 7, 60, 3),
+                   (1, 64, 64, 2048, 8, 30, 2),
+                   (8, 100, 100, 3072, 9, 60, 4),
+                   (6, 120, 120, 3072, 11, 60, 6),
+                   (1, 60, 60, 8192, 12, 50, 0)]
 
 
 def _iteration_inputs(case, dev):
@@ -1274,14 +1284,18 @@ def test_iteration_kernels_match_plain(case, cuda):
     assert bool(lines_p.count.gt(0).any()) and bool(head_p.is_top.any())
 
 
-def test_iteration_kernels_update_the_carry_in_place(cuda):
+@pytest.mark.parametrize("case", [ITERATION_CASES[1], ITERATION_CASES[6],
+                                  ITERATION_CASES[8]])
+def test_iteration_kernels_update_the_carry_in_place(case, cuda):
     """With the carry's own tensors as outputs, as the dispatch graph runs
-    them, KI-head and KI-tail give what they give into new tensors."""
+    them, KI-head and KI-tail give what they give into new tensors: one
+    CTA per lane, and tiles whose halos overlap the next tile's own
+    entries."""
     from lara_tpu_torch.solver import device_solver, iteration_cuda
 
-    model, c, st, tb, match = _iteration_inputs(ITERATION_CASES[1], cuda)
+    model, c, st, tb, match = _iteration_inputs(case, cuda)
     head = iteration_cuda.head(model, st, c)
-    lines = iteration_cuda.lines(model, st, c, head, tb.partner, 40)
+    lines = iteration_cuda.lines(model, st, c, head, tb.partner, case[2])
     want = iteration_cuda.tail(c, head.dual_at_queue, tb, lines, match, 3)
     own = device_solver._Carry(*(t.clone() for t in c))
     head2 = iteration_cuda.head(model, st, own, own.dual_at_queue)
@@ -1291,6 +1305,43 @@ def test_iteration_kernels_update_the_carry_in_place(cuda):
     torch.cuda.synchronize()
     assert all(g is o for g, o in zip(got, own))
     _tuple_equal(got, want, "carry")
+
+
+@pytest.mark.parametrize("tile", [1, 7, 15, 31, 100, 3072])
+def test_head_tiles_of_any_width_match_plain(tile, cuda):
+    """KI-head over tiles fixed narrower than, equal to and wider than the
+    halo (15 entries: 4 passes) and over one tile a lane gives the plain
+    version's every output and PSSM cell."""
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    model, c, st, _tb, _match = _iteration_inputs(ITERATION_CASES[7], cuda)
+    st_plain = st._replace(pssm=st.pssm.clone())
+    head = iteration_cuda.head(model, st, c, tile=tile)
+    head_p = device_solver.head_plain(model, st_plain, c)
+    torch.cuda.synchronize()
+    _tuple_equal(head, head_p, "head")
+    _int_equal(st.pssm, st_plain.pssm, "pssm")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", [ITERATION_CASES[1], ITERATION_CASES[2],
+                                  ITERATION_CASES[5]])
+def test_lines_clusters_match_plain(case, cluster, cuda):
+    """KI-lines in clusters of 1, 2, 3 and 8 CTAs a lane (D, the slots and
+    the queue width not multiples of 3 or 8 in the first and last case;
+    the tRNA chunk's shape in the second) gives the plain version's every
+    output."""
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+
+    model, c, st, tb, _match = _iteration_inputs(case, cuda)
+    head = device_solver.head_plain(model, st._replace(pssm=st.pssm.clone()),
+                                    c)
+    lines = iteration_cuda.lines(model, st, c, head, tb.partner, case[2],
+                                 cluster=cluster)
+    lines_p = device_solver.lines_plain(model, st, c, head, tb.partner,
+                                        case[2])
+    torch.cuda.synchronize()
+    _tuple_equal(lines, lines_p, "lines")
 
 
 def test_iteration_tail_keeps_the_reference_order(cuda):
