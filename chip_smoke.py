@@ -32,15 +32,22 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    ``benchmark/profile_wavefront_layout.py``, reps 1, 2 and 5 and near
    INT32_MAX, timed at reps 5 beside its bound and at the source's 3600;
    the loop exit (``csrc/loop_exit.cu``, the JAX ``while_loop``'s
-   ``cond`` on the card) against ``any()`` and the iteration budget at 128
-   and 32 lanes, a turn of its loop and an idle dispatch timed; KI-head,
+   ``cond`` on the card: its kernel before the first trip, KI-tail's last
+   CTA after each) against ``any()`` and the iteration budget at 128 and
+   32 lanes, around a KI-tail body as the solver's graph runs it (bodies
+   run equal to the counters, KI-tail's ticket 0, no condition set by
+   KI-tail outside the loop), the graph with no lane active, an idle
+   dispatch and a turn of its loop timed; KI-head,
    KI-lines and KI-tail (``csrc/iteration.cu``, the fused solver's
    iteration body around the DP and K3) on the tRNA, ~300 nt and 16S
    chunks' models with random carries, every output and the PSSM grid's
    start cells against the plain versions, each chunk's grids printed
-   (KI-head's steps, halo, tile and CTAs; KI-lines' cluster and CTAs), and
-   KI-head and KI-lines timed in turns in other layouts (one CTA a lane;
-   KI-lines in clusters of 8), each held against its plain version too;
+   (KI-head's steps, halo, tile and CTAs; KI-lines' cluster and CTAs;
+   KI-tail's threads), and KI-head and KI-lines timed in turns in other
+   layouts (both on one CTA a lane, KI-lines in clusters of 8), each held
+   against its plain version too; KI-tail on crafted carries at the three
+   chunks' shapes and a ragged one (inactive, halving, count 0 and > 1,
+   wrapping bounds; new tensors and in place);
    then the dispatch graph (``lara_tpu_torch.solver.dispatch_graph``: on
    the card every ``solve_batch_chunk`` is one launch of a graph whose
    WHILE node loops over a captured iteration while a lane is active)
@@ -81,7 +88,7 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    and the fused runs of one chunk K1 + K2 + K3 (under ``LARA_DP_GRID=1``
    K1-grid + K2-grid + K3) exactly once per iteration of the JAX loop
    (the longest lane's), and KI-head, KI-lines and KI-tail with them, the
-   loop exit once per dispatch and iteration;
+   loop exit's kernel once per dispatch;
    each run prints its model uploads (layout, bytes, and the ten arrays'
    bytes), each dispatch's iterations run, and the hybrid's graph
    replays.
@@ -168,7 +175,7 @@ KERNELS = {
                         "benchmark/profile_wavefront_layout.py:47"),
     # the loop exit of a graphed dispatch: not Pallas on the TPU but the
     # cond of the dispatch's while_loop (:629-633), run once per dispatch
-    # and once per iteration
+    # (KI-tail evaluates it after each iteration)
     "loop_exit": ("lara_tpu_torch/csrc/loop_exit.cu",
                   "lara_tpu/solver/device_solver.py:629"),
     # the iteration body around the DP and K3: not Pallas on the TPU but
@@ -446,75 +453,114 @@ def _kb_phase(dev, stats):
 
 
 def _loop_exit_phase(dev, stats):
-    """The loop exit's kernel (``csrc/loop_exit.cu``) against its plain
-    version, PyTorch's ``lane_active.any()`` and the iteration budget, at
-    the tRNA chunk's 128 lanes and the 16S chunk's 32: a graph of the
-    kernel and a WHILE node around a captured counter, launched with 3
-    iterations left and no lane, the first, the last, half of them at
-    random and every lane active (the body must run 3 times exactly when
-    ``any()`` holds, and be counted), then around a body that clears every
-    lane on its second run, launched with 5 left (2 runs).  Then timed
-    beside ``any()`` and the bound (the lanes' bytes and the counters',
-    read once): one turn of the loop around that one-kernel body (a launch
-    of 200 turns), and a launch with no lane active, the cost of the
-    dispatch after the last lane finishes."""
+    """The loop exit (``csrc/loop_exit.cu``: its kernel before the first
+    trip, KI-tail's last CTA after each) against its plain version,
+    PyTorch's ``lane_active.any()``, and the iteration budget, at the tRNA
+    chunk's 128 lanes, D and slots and the 16S chunk's 32: the graph of a
+    dispatch around a body that counts its runs and runs KI-tail in place
+    on ``tail_cases.tail_inputs`` (as the fused solver's graph runs it),
+    launched with 3 iterations left and no lane, the last, the first,
+    half of them at random and every lane active (KI-tail keeps each lane
+    as it is: the body must run 3 times exactly when ``any()`` holds, and
+    be counted), with 7 left (the budget running out), and with every lane
+    ending on the body's second run (``remaining`` 2, 5 left): bodies run
+    equal to ``counters[1]``, KI-tail's ticket 0 after each launch; and
+    KI-tail launched eagerly and the capture replayed bare leave the
+    counters as they were (no condition set outside the loop).  Timed
+    beside ``any()`` (the row's plain version and library call) and the
+    bound (the lanes' bytes and the counters', read once): the graph
+    replayed with no lane active (the pre-loop kernel and a WHILE node
+    that does not run: the row's time), the same dispatch with the host's
+    counter writes (the cost of the dispatch after the last lane
+    finishes), and one turn of the loop (launches of 200 turns) beside
+    the body's capture replayed bare."""
     import torch
 
-    from lara_tpu_torch.solver import dispatch_graph
+    from lara_tpu_torch.solver import dispatch_graph, iteration_cuda
+    from lara_tpu_torch.solver import tail_cases
 
+    nd = tail_cases.MAX_NONDECR
     rng = np.random.default_rng(13)
-    for lanes in (128, 32):
-        active = torch.zeros(lanes, dtype=torch.bool, device=dev)
-        counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    for lanes, d, slots in ((128, 1024, 96), (32, 3072, 1536)):
+        counters = torch.zeros(4, dtype=torch.int32, device=dev)
         runs = torch.zeros((), dtype=torch.int32, device=dev)
+        # the body updates the carry c in place, and c.lane_active is the
+        # loop's predicate
+        c, tb, ln, match = tail_cases.tail_inputs(
+            lanes, d, slots, 70 + lanes, dev, remaining=10**6)
+        graph = dispatch_graph.CudaGraph(dev)
+        graph.capture(lambda: (runs.add_(1), iteration_cuda.tail(
+            c, c.dual_at_queue, tb, ln, match, nd, out=c)), c.lane_active,
+            counters)
 
-        def launch(graph, left):
+        def launch(left):
             counters[0].fill_(left)
-            counters[1].zero_()
+            counters[1:].zero_()
             graph.replay()
+
+        def check(what, left, want):
+            got = (int(runs), int(counters[1]), int(counters[0]),
+                   int(counters[2:].abs().sum()))
+            if got != (want, want, left - want, 0):
+                raise AssertionError(
+                    f"the loop exit at {lanes} lanes, {what}: (bodies, "
+                    f"counters) {got}, expected "
+                    f"{(want, want, left - want, 0)}")
 
         masks = [np.zeros(lanes, bool), np.arange(lanes) == lanes - 1,
                  np.arange(lanes) == 0, rng.random(lanes) < 0.5,
                  np.ones(lanes, bool)]
-        err = 0
-        counted = dispatch_graph.CudaGraph(dev)
-        counted.capture(lambda: runs.add_(1), active, counters)
-        for mask in masks:
-            active.copy_(torch.from_numpy(mask))
+        cases = [(f"mask {k}", m, 10**6, 3) for k, m in enumerate(masks)]
+        cases += [("the budget running out", masks[-1], 10**6, 7),
+                  ("every lane ends on the second run", masks[-1], 2, 5)]
+        for what, mask, remaining, left in cases:
+            c.lane_active.copy_(torch.from_numpy(mask))
+            c.remaining.fill_(remaining)
             runs.zero_()
-            launch(counted, 3)
-            want = 3 * int(bool(active.any()))
-            err = max(err, abs(int(runs) - want),
-                      abs(int(counters[1]) - want),
-                      abs(int(counters[0]) - (3 - want)))
-        clearing = dispatch_graph.CudaGraph(dev)
-        clearing.capture(lambda: (runs.add_(1), active.logical_and_(runs < 2)),
-                         active, counters)
-        active.fill_(True)
+            launch(left)
+            want = min(remaining, left) * int(mask.any())
+            check(what, left, want)
+        # KI-tail eagerly and the capture bare, after a run: no condition
+        # set, the counters as they were
+        c.lane_active.fill_(True)
+        c.remaining.fill_(10**6)
         runs.zero_()
-        launch(clearing, 5)
-        err = max(err, abs(int(runs) - 2), abs(int(counters[1]) - 2))
-        if err:
-            raise AssertionError(f"the loop exit disagrees with any() at "
-                                 f"{lanes} lanes: {err}")
-        active.fill_(True)
-        turn_ms = _time_ms(lambda: launch(counted, 200), 20) / 200
-        active.zero_()
-        idle_ms = _time_ms(lambda: launch(counted, 125), 200)
-        plain_ms = _time_ms(lambda: active.any(), 200)
-        counted.close()
-        clearing.close()
+        launch(3)
+        graph._graph.instantiate()
+        iteration_cuda.tail(c, c.dual_at_queue, tb, ln, match, nd, out=c)
+        graph._graph.replay()
+        runs.sub_(1)
+        check("then KI-tail eager and the capture bare", 3, 3)
+        runs.zero_()
+        launch(4)
+        check("then the loop again", 4, 4)
+
+        turn_ms = _time_ms(lambda: launch(200), 10) / 200
+        # the same body replayed bare, 200 replays queued while the card
+        # sleeps: what the WHILE node adds to a turn
+        bare_ms = _time_ms(lambda: [graph._graph.replay()
+                                    for _ in range(200)], 2) / 200
+        c.lane_active.zero_()
+        launch(1)
+        ms = _time_ms(graph.replay, 200)
+        idle_ms = _time_ms(lambda: launch(125), 200)
+        plain_ms = _time_ms(lambda: c.lane_active.any(), 200)
+        graph.close()
         bound_ms, bound_by = _bound(lanes + 8.0, float(lanes))
         shape = f"B={lanes}"
-        stats["loop_exit"].append((shape, err, turn_ms, plain_ms, bound_ms,
-                                   bound_by, {"idle_dispatch_ms":
-                                              round(idle_ms, 6)}))
-        print(f"  {'loop_exit':16s} {shape:24s} max_abs_err {err} (none, "
-              f"first, last, random, all active; a body that ends the "
-              f"loop)  a turn of the loop {turn_ms:.4f} ms (with a "
-              f"one-kernel body)  a dispatch with no lane active "
+        stats["loop_exit"].append((shape, 0, ms, plain_ms, bound_ms,
+                                   bound_by, {
+                                       "idle_dispatch_ms": round(idle_ms, 6),
+                                       "turn_ms": round(turn_ms, 6),
+                                       "bare_body_ms": round(bare_ms, 6)}))
+        print(f"  {'loop_exit':16s} {shape:24s} max_abs_err 0 (none, last, "
+              f"first, random, all active; the budget; every lane ending "
+              f"on the second run; eager and bare untouched; ticket 0; "
+              f"KI-tail at D={d} slots={slots})  the dispatch's graph "
+              f"with no lane active {ms:.4f} ms, with the counter writes "
               f"{idle_ms:.4f} ms  any() {plain_ms:.4f} ms  bound "
-              f"{bound_ms:.8f} ms ({bound_by})")
+              f"{bound_ms:.8f} ms ({bound_by}); a turn of the loop "
+              f"{turn_ms:.4f} ms, the body replayed bare {bare_ms:.4f} ms")
 
 
 def _structure_free_path(dev, tmp):
@@ -955,6 +1001,7 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     fused = "matching_rounds" in expect
     if fused and graphed:
         # every replay of a graphed dispatch runs the loop exit's kernel
+        # once
         expect = tuple(expect) + ("loop_exit",)
     name = f"{label} -m {matching}" + "".join(f" {k}={v}"
                                               for k, v in env.items())
@@ -1033,7 +1080,7 @@ def _main_path(label, records, dev, tmp, expect, matching=5, env=None,
     if graphs:
         executed = [g.executed() for g in graphs]
         if sum(executed) != launches["matching_rounds"] or \
-                len(graphs) + sum(executed) != launches["loop_exit"]:
+                len(graphs) != launches["loop_exit"]:
             raise AssertionError(
                 f"{name}: the dispatches ran {executed} of "
                 f"{[g.steps for g in graphs]} iterations, the counts say "
@@ -1201,13 +1248,13 @@ def _exact_launches(name, launches, results, shards,
     of ``kernels`` (K1, K2 and K3, or K1-grid, K2-grid and K3) exactly once
     per iteration the JAX ``while_loop`` would run: each shard's longest
     lane's iterations, the loop exit ending each dispatch there; and the
-    loop exit's kernel once per dispatch (:func:`_dispatched`) and once
-    per iteration.  The eager loop on the card (``graphed`` false) runs
-    every dispatched iteration.  Lane k holds the chunk's pair k (results
-    in task order), the lanes pad to ``device_driver._padded_batch`` and
-    then to a multiple of the shards (padding lanes converge in one
-    iteration).  Returns each shard's (iterations run, iterations
-    dispatched)."""
+    loop exit's kernel once per dispatch (:func:`_dispatched`; KI-tail
+    evaluates the exit after each iteration).  The eager loop on the card
+    (``graphed`` false) runs every dispatched iteration.  Lane k holds the
+    chunk's pair k (results in task order), the lanes pad to
+    ``device_driver._padded_batch`` and then to a multiple of the shards
+    (padding lanes converge in one iteration).  Returns each shard's
+    (iterations run, iterations dispatched)."""
     from lara_tpu_torch.solver import device_driver
 
     lanes = device_driver._padded_batch(len(results), shards)
@@ -1219,8 +1266,7 @@ def _exact_launches(name, launches, results, shards,
     steps = [total for total, _ in dispatched]
     want = dict.fromkeys(kernels, sum(longest if graphed else steps))
     if graphed:
-        want["loop_exit"] = sum(count for _, count in dispatched) \
-            + sum(longest)
+        want["loop_exit"] = sum(count for _, count in dispatched)
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"{name}: launched {got}, expected {want} "
@@ -1559,7 +1605,7 @@ def _random_body_inputs(batch, carry, la_max, lb_max, seed, dev):
 def _body_grids(label, model, st, slots):
     """Print the grids of KI-head, KI-lines and KI-tail on this chunk, as
     their wrappers choose them (``iteration_cuda.head_grid``,
-    ``lines_grid``)."""
+    ``lines_grid``, ``tail_grid``)."""
     from lara_tpu_torch.solver import iteration_cuda
 
     b, d = model.dual_l.shape
@@ -1567,14 +1613,16 @@ def _body_grids(label, model, st, slots):
     steps = len(st.same_masks)
     hg = iteration_cuda.head_grid(b, d, steps, sms)
     lg = iteration_cuda.lines_grid(b, d, slots, st.lq.shape[1], sms)
+    tg = iteration_cuda.tail_grid(b, d, slots)
     why = (f" (one CTA per lane: the halo of {hg.halo} is wider than half "
            f"the lane)" if hg.tiles == 1 else "")
     print(f"  grids, {label}: KI-head steps {steps}, halo {hg.halo}, tile "
           f"{hg.tile} ({hg.tiles} a lane, at most {hg.span} entries with "
           f"the halos), {hg.ctas} CTAs{why}; KI-lines clusters of "
           f"{lg.cluster} ({lg.dper} entries, {lg.sper} slots, {lg.qper} "
-          f"queue columns a CTA), {lg.ctas} CTAs; KI-tail one CTA per lane, "
-          f"{b} CTAs; {sms} SMs")
+          f"queue columns a CTA), {lg.ctas} CTAs; KI-tail one CTA a lane "
+          f"of {tg.threads} threads (16-byte loads {tg.vec}), {tg.ctas} "
+          f"CTAs; {sms} SMs")
 
 
 def _body_layouts(label, model, st, c, tb, lb_max):
@@ -1656,6 +1704,46 @@ def _body_phase(label, records, dev, stats, seed):
     _hold_body(f"{chunk} random carry", batch, st, c, tb, match,
                lb_max, max_nondecr, stats)
     _body_layouts(f"{chunk} random carry", batch, st, c, tb, lb_max)
+
+
+def _tail_cases(dev):
+    """KI-tail against its plain version on ``tail_cases.tail_inputs`` at
+    the tRNA, ~300 nt and 16S chunks' B, D and slots and at a ragged B=40
+    D=1021 with 33 slots (no 16-byte loads), each into new tensors and in
+    place (``out=c``, as the dispatch graph runs it): every output equal
+    (fatal otherwise), on lanes inactive, halving, with count 0 and count
+    > 1, and with best_upper - best_lower wrapping, each present in every
+    case."""
+    import torch
+
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+    from lara_tpu_torch.solver import tail_cases
+
+    nd = tail_cases.MAX_NONDECR
+    for k, (b, d, slots) in enumerate(((128, 1024, 96), (32, 1024, 320),
+                                       (32, 3072, 1536), (40, 1021, 33))):
+        c, tb, ln, match = tail_cases.tail_inputs(b, d, slots, 90 + k, dev)
+        want = device_solver.tail_plain(c, c.dual_at_queue, tb, ln, match,
+                                        nd)
+        seen = tail_cases.lane_kinds(c, ln, want)
+        if not all(seen.values()):
+            raise AssertionError(f"KI-tail's case B={b} D={d} lacks one of "
+                                 f"its kinds of lane: {seen}")
+        got = iteration_cuda.tail(c, c.dual_at_queue, tb, ln, match, nd)
+        own = device_solver._Carry(*(t.clone() for t in c))
+        iteration_cuda.tail(own, own.dual_at_queue, tb, ln, match, nd,
+                            out=own)
+        torch.cuda.synchronize()
+        err = max([_max_abs_err(g, w) for g, w in zip(got, want)]
+                  + [_max_abs_err(g, w) for g, w in zip(own, want)])
+        if err:
+            raise AssertionError(f"KI-tail disagrees with its plain version "
+                                 f"at B={b} D={d} slots={slots}: "
+                                 f"max_abs_err {err}")
+        grid = iteration_cuda.tail_grid(b, d, slots)
+        print(f"  iteration_tail   B={b} D={d} slots={slots} max_abs_err 0 "
+              f"(new tensors and in place; lanes {seen}); one CTA a lane "
+              f"of {grid.threads} threads, 16-byte loads {grid.vec}")
 
 
 @contextlib.contextmanager
@@ -1740,10 +1828,10 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
     has not run the key, captures and launches; each one launch) under
     ``torch.cuda.set_sync_debug_mode("error")``, the kernels ``expect``
     counted exactly once per iteration the loop exit let run (the longest
-    lane's, at most ``2 * steps``) and the loop exit's kernel once per
-    dispatch and once per iteration.  Prints the capture seconds and the
-    peak memory of each way beside ``device_driver``'s estimate of the
-    chunk (``_chunk_est_bytes``)."""
+    lane's, at most ``2 * steps``), the loop exit's kernel once per
+    dispatch, and KI-tail's ticket 0 after them.  Prints the capture
+    seconds and the peak memory of each way beside ``device_driver``'s
+    estimate of the chunk (``_chunk_est_bytes``)."""
     import torch
 
     from lara_tpu_torch import _build
@@ -1772,6 +1860,8 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
             peaks[way] = torch.cuda.max_memory_allocated(dev) - base
             carries[way] = (one, two)
         capture_s = dispatch_graph.last_capture_seconds
+        tickets = [int(e.counters[2:].abs().sum())
+                   for e in dispatch_graph._entries]
         dispatch_graph.release()  # settles the graphed launch counts
         launches = dict(_build.launches)
     for k, (got, want) in enumerate(zip(carries["graph"], carries["eager"])):
@@ -1780,8 +1870,11 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
                 raise AssertionError(f"{label}: dispatch {k + 1}, {field}: "
                                      "the graph differs from the eager loop")
     ran = [int(c.iterations.max()) for c in carries["eager"]]
-    want = dict.fromkeys(expect, ran[1]) | {"loop_exit": 2 + ran[1]}
+    want = dict.fromkeys(expect, ran[1]) | {"loop_exit": 2}
     got = {name: n for name, n in launches.items() if n}
+    if any(tickets):
+        raise AssertionError(f"{label}: KI-tail's tickets {tickets} after "
+                             "the dispatches, not 0")
     if got != want:
         raise AssertionError(f"{label}: the graphed dispatches launched "
                              f"{got}, expected {want}")
@@ -2245,6 +2338,7 @@ def main() -> int:
     # models with random carries (their own inputs follow in phase 4)
     for seed, (label, records) in enumerate(families, start=51):
         _body_phase(label, records, dev, stats, seed)
+    _tail_cases(dev)
     trna, rrna, long16 = families
     fused = FUSED_ITERATION + K4
     launches = dict.fromkeys(KERNELS, 0)
@@ -2345,8 +2439,10 @@ def main() -> int:
             "ms": _sig(ms), "plain_ms": _sig(plain_ms),
             "bound_ms": _sig(bound_ms), "bound_by": bound_by,
             # no PyTorch call computes an affine-gap DP, its traceback, the
-            # greedy lookahead matching, the edge filter or KB's chain
-            "library_ms": None, "shape": shape}
+            # greedy lookahead matching, the edge filter, KB's chain or a
+            # part of the iteration body; the loop exit's is any()
+            "library_ms": _sig(plain_ms) if name == "loop_exit" else None,
+            "shape": shape}
         for more in extra:  # K3: the rounds of the longest lane; KB: reps
             entry.update(more)
         if name == "wavefront_chain":

@@ -255,8 +255,8 @@ def library() -> ctypes.CDLL:
         lib.lara_iteration_lines.restype = i32
         lib.lara_iteration_lines.argtypes = [ptr] * 14 + [i32] * 10 + [ptr] * 7
         lib.lara_iteration_tail.restype = i32
-        lib.lara_iteration_tail.argtypes = [ctypes.POINTER(ptr), i32, i32,
-                                            i32, i32, i32, ptr]
+        lib.lara_iteration_tail.argtypes = [ctypes.POINTER(ptr)] \
+            + [i32] * 7 + [ptr]
         lib.lara_smem_optin.restype = i32
         lib.lara_smem_optin.argtypes = [i32, ctypes.POINTER(i32)]
         lib.lara_cuda_error_string.restype = ctypes.c_char_p

@@ -20,7 +20,9 @@
 //   slot marks, and K3's candidate mask cand_q.
 // * KI-tail (JAX :583-628): the lower bound, best-primal tracking, the
 //   bound bookkeeping with step halving, the float32 dual update,
-//   remaining, lane_active and iterations.
+//   remaining, lane_active and iterations; inside the dispatch graph's
+//   WHILE node also the loop's exit for the next trip (the JAX cond,
+//   :629-633; csrc/loop_exit.cu), in place of a kernel of its own.
 //
 // What bounds them: the bytes of the [B, D] dual columns, read once or
 // twice -- about a microsecond at the bench's shapes -- but one CTA per
@@ -37,7 +39,13 @@
 //   launch and barriers would cost more than they save (and 16-byte loads
 //   of four entries a thread, tried, were slower: a thread's entries then
 //   wait on each other's gathers).
-// KI-tail stays one CTA per lane: its lane scalars come first.
+// KI-tail's work is a lane's 16 scalars and a pass over its rows, whose
+// outputs may be their inputs.  Every thread issues all its row loads
+// (four entries and four slots, 16 bytes a load) before it waits on the
+// lane's step, which one warp computes from the scalars, one a thread: a
+// load behind the scalars, or behind a store it may alias, is a round
+// trip.  One CTA a lane beat 2-8 CTAs a lane at every bench chunk
+// (PERF.md).
 //
 // Arithmetic of the reference:
 // * int32 adds wrap (best_upper - best_lower starts at INFINITY -
@@ -53,14 +61,15 @@
 // KI-head writes dual_at_queue and KI-tail every other field of the next
 // carry; an output may be the input it replaces (the dispatch graph's
 // static carry is updated in place): each element is read by the thread
-// that writes it, before it writes it, and a lane's scalars by thread 0
-// alone.
+// that writes it, before it writes it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -71,7 +80,6 @@ constexpr int kNegInf = -1431655764;    // -INFINITY (types.py)
 constexpr int kPssmInit = -1431655764;  // PSSM_INIT (types.py)
 constexpr int kMaxThreads = 1024;
 constexpr int kLinesThreads = 1024;
-constexpr int kTailThreads = 256;
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -434,9 +442,9 @@ __global__ void __launch_bounds__(kLinesThreads)
 }
 
 // KI-tail's tensors, in the order of lara_iteration_tail's pointer array
-// (iteration_cuda.TAIL_ARGS): the carry before the iteration, this
-// iteration's alignment, K3's result and KI-lines', and the next carry
-// (which may be the carry before).
+// (iteration_cuda.tail): the carry before the iteration, this iteration's
+// alignment, K3's result and KI-lines', and the next carry (which may be
+// the carry before).
 struct TailArgs {
   const int* dual;
   const float* step_factor;
@@ -476,87 +484,268 @@ struct TailArgs {
 };
 constexpr int kTailPointers = sizeof(TailArgs) / sizeof(void*);
 
-// KI-tail.  Grid: one CTA per lane.  Thread 0 reads the lane's scalars and
-// writes their successors; every thread then updates its duals and slots
-// from the lane's step and flags in shared memory.
-__global__ void __launch_bounds__(kTailThreads)
-    iteration_tail_kernel(TailArgs a, int d, int slots, int max_nondecr) {
+// The lane's scalar inputs, one a thread of warp 0: their TailArgs fields
+// (lane_active a byte, the others 32 bits).
+enum TailScalar {
+  kAct, kCount, kMatchScore, kConsistentSum, kSeqPart, kGapScore,
+  kBestScore, kBestNlines, kNLines, kUpper, kBestUpper, kBestLower,
+  kNondecr, kStepFactor, kRemaining, kIterations, kTailScalars
+};
+#define LARA_TAIL_FIELD(f) \
+  static_cast<int>(offsetof(TailArgs, f) / sizeof(void*))
+__constant__ int kTailScalarField[kTailScalars] = {
+    LARA_TAIL_FIELD(lane_active),  LARA_TAIL_FIELD(count),
+    LARA_TAIL_FIELD(match_score),  LARA_TAIL_FIELD(consistent_sum),
+    LARA_TAIL_FIELD(seq_part),     LARA_TAIL_FIELD(gap_score),
+    LARA_TAIL_FIELD(best_score),   LARA_TAIL_FIELD(best_nlines),
+    LARA_TAIL_FIELD(n_lines),      LARA_TAIL_FIELD(upper),
+    LARA_TAIL_FIELD(best_upper),   LARA_TAIL_FIELD(best_lower),
+    LARA_TAIL_FIELD(nondecr),      LARA_TAIL_FIELD(step_factor),
+    LARA_TAIL_FIELD(remaining),    LARA_TAIL_FIELD(iterations)};
+#undef LARA_TAIL_FIELD
+
+// Four consecutive entries of a row from i (below hi): one 16-byte load
+// (kVec: hi and i multiples of 4, the row 16-byte aligned), else four
+// scalar loads, each within the row.
+template <bool kVec>
+__device__ __forceinline__ int4 load4(const int* p, int i, int hi) {
+  if (kVec) return *reinterpret_cast<const int4*>(p + i);
+  return make_int4(p[i], i + 1 < hi ? p[i + 1] : 0, i + 2 < hi ? p[i + 2] : 0,
+                   i + 3 < hi ? p[i + 3] : 0);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(int* p, int i, int hi, int4 v) {
+  if (kVec) {
+    *reinterpret_cast<int4*>(p + i) = v;
+    return;
+  }
+  p[i] = v.x;
+  if (i + 1 < hi) p[i + 1] = v.y;
+  if (i + 2 < hi) p[i + 2] = v.z;
+  if (i + 3 < hi) p[i + 3] = v.w;
+}
+
+// Four bools as the bytes of a word (byte j: entry i + j).
+template <bool kVec>
+__device__ __forceinline__ uint32_t load4b(const bool* p, int i, int hi) {
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(p);
+  if (kVec) return *reinterpret_cast<const uint32_t*>(b + i);
+  uint32_t v = b[i];
+  for (int j = 1; j < 4; ++j)
+    if (i + j < hi) v |= static_cast<uint32_t>(b[i + j]) << (8 * j);
+  return v;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4b(bool* p, int i, int hi, uint32_t v) {
+  uint8_t* b = reinterpret_cast<uint8_t*>(p);
+  if (kVec) {
+    *reinterpret_cast<uint32_t*>(b + i) = v;
+    return;
+  }
+  for (int j = 0; j < 4; ++j)
+    if (i + j < hi) b[i + j] = static_cast<uint8_t>(v >> (8 * j));
+}
+
+__device__ __forceinline__ int lane_of(int4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The dual update (subgradient_solver.hpp:265-271) of four entries.
+__device__ __forceinline__ int4 dual_step(int4 du, int4 g, bool act,
+                                          float step) {
+  int out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = lane_of(du, j), s = lane_of(g, j);
+    out[j] = act && s != 0
+                 ? __float2int_rz(__fsub_rn(__int2float_rn(u),
+                                            __fmul_rn(step,
+                                                      __int2float_rn(s))))
+                 : u;
+  }
+  return make_int4(out[0], out[1], out[2], out[3]);
+}
+
+// A thread's four slots: partner, best_partner, and the bytes of
+// best_matched, used_slot and matched_cons_slot.
+struct SlotQuad {
+  int4 p, bp;
+  uint32_t bm, used, cons;
+};
+
+template <bool kVec>
+__device__ __forceinline__ SlotQuad load_slots(const TailArgs& a, size_t srow,
+                                               int s, int hi) {
+  return {load4<kVec>(a.partner + srow, s, hi),
+          load4<kVec>(a.best_partner + srow, s, hi),
+          load4b<kVec>(a.best_matched + srow, s, hi),
+          load4b<kVec>(a.used_slot + srow, s, hi),
+          load4b<kVec>(a.matched_cons_slot + srow, s, hi)};
+}
+
+// Best-primal tracking of four slots (lagrange.hpp:416-421).
+template <bool kVec>
+__device__ __forceinline__ void store_slots(const TailArgs& a, size_t srow,
+                                            int s, int hi, const SlotQuad& q,
+                                            bool better, bool any_sg) {
+  const uint32_t pick = any_sg ? q.used : q.cons;
+  uint32_t matched = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (((pick >> (8 * j)) & 0xffu) && lane_of(q.p, j) >= 0)
+      matched |= 1u << (8 * j);
+  store4<kVec>(a.best_partner_out + srow, s, hi, better ? q.p : q.bp);
+  store4b<kVec>(a.best_matched_out + srow, s, hi, better ? matched : q.bm);
+}
+
+// KI-tail.  Grid: one CTA per lane (lane = blockIdx.x), four dual entries
+// and four line slots a thread, the block striding over longer lanes
+// (iteration_cuda.tail_grid chooses the threads).  Every thread first
+// issues the loads of its first four entries and slots (dual, sg;
+// partner, best_partner, best_matched, used_slot, matched_cons_slot), 16
+// bytes at a time where kVec; only then does it wait for the lane's step.
+// Warp 0 meanwhile loads the lane's 16 scalars, one a thread, both arms of
+// the any_sg select among them, and computes the lower bound, best
+// primal, bounds, halving, the step and lane_active, which go through
+// shared memory to the block; thread 0 writes the lane's scalar outputs
+// (after the shuffles, so after every scalar input was read).
+//
+// With `loop` (only inside the dispatch graph's WHILE node, where
+// lara_iteration_tail_fold sets it and `handle`), KI-tail also evaluates
+// the loop's condition for the next trip, the work of loop_exit_kernel:
+// every CTA takes a ticket in the 64-bit word at loop + 2 (the CTAs so
+// far, and the lanes they left active), and the last one sets the WHILE
+// node's condition to loop[0] > 0 && any lane active, where set takes one
+// from loop[0] and adds one to loop[1], and zeroes the word.  The lanes'
+// activity travels in the tickets, so nothing is read back.
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+    iteration_tail_kernel(const __grid_constant__ TailArgs a, int d,
+                          int slots, int max_nondecr,
+                          cudaGraphConditionalHandle handle,
+                          int* __restrict__ loop) {
   __shared__ float step_s;
-  __shared__ bool act_s, better_s, any_sg_s;
+  __shared__ int flags_s;  // bit 0: act, 1: better, 2: any_sg
+  unsigned long long ticket = 0;  // thread 0's, after its own add
   const int k = blockIdx.x;
-  if (threadIdx.x == 0) {
-    const bool act = a.lane_active[k];
-    const int cnt = a.count[k];
+  const size_t row = static_cast<size_t>(k) * d;
+  const size_t srow = static_cast<size_t>(k) * slots;
+  const int i0 = 4 * threadIdx.x;
+  const int stride = 4 * blockDim.x;
+
+  int4 du = {}, g = {};
+  if (i0 < d) {
+    du = load4<kVec>(a.dual + row, i0, d);
+    g = load4<kVec>(a.sg + row, i0, d);
+  }
+  SlotQuad sq = {};
+  if (i0 < slots) sq = load_slots<kVec>(a, srow, i0, slots);
+
+  if (threadIdx.x < 32) {
+    const int f = threadIdx.x;
+    uint32_t v = 0;
+    if (f < kTailScalars) {
+      const void* src =
+          reinterpret_cast<const void* const*>(&a)[kTailScalarField[f]];
+      v = f == kAct ? static_cast<const uint8_t*>(src)[k]
+                    : static_cast<const uint32_t*>(src)[k];
+    }
+    auto at = [&](int field) {
+      return static_cast<int>(__shfl_sync(kFull, v, field));
+    };
+    const bool act = at(kAct) != 0;
+    const int cnt = at(kCount);
     const bool any_sg = cnt > 0;
-    const int struct_part = any_sg ? a.match_score[k] : a.consistent_sum[k];
-    const int lower = wadd(wadd(a.seq_part[k], struct_part), a.gap_score[k]);
+    const int lower = wadd(wadd(at(kSeqPart),
+                                any_sg ? at(kMatchScore) : at(kConsistentSum)),
+                           at(kGapScore));
     // best primal tracking (lagrange.hpp:416-421)
-    const int best_score = a.best_score[k];
+    const int best_score = at(kBestScore);
     const bool better = act && lower > best_score;
-    const int best_nlines = a.best_nlines[k];
+    const int best_nlines = at(kBestNlines);
+    const int n_lines = at(kNLines);
     // bound bookkeeping (subgradient_solver.hpp:247-263)
-    const int upper = a.upper[k];
-    const int bu_old = a.best_upper[k];
-    const int bl_old = a.best_lower[k];
+    const int upper = at(kUpper);
+    const int bu_old = at(kBestUpper);
+    const int bl_old = at(kBestLower);
     const bool improved_u = act && upper < bu_old;
     const bool improved_l = act && lower > bl_old;
     const int bu = improved_u ? upper : bu_old;
     const int bl = improved_l ? lower : bl_old;
-    const int nd_old = a.nondecr[k];
+    const int nd_old = at(kNondecr);
     const int nd = (improved_u || improved_l) ? 0 : nd_old;
     const bool halve = act && nd >= max_nondecr;
-    const float sf_old = a.step_factor[k];
+    const float sf_old = __int_as_float(at(kStepFactor));
     const float sf = halve ? __fdiv_rn(sf_old, 2.0f) : sf_old;
-    // dual update (subgradient_solver.hpp:265-271): the step in the
-    // reference's order, step_factor * (ub - lb) / max(count, 1)
-    const int gap = static_cast<int>(static_cast<uint32_t>(bu) -
-                                     static_cast<uint32_t>(bl));
-    step_s = __fdiv_rn(__fmul_rn(sf, __int2float_rn(gap)),
-                       __int2float_rn(cnt > 1 ? cnt : 1));
-    act_s = act;
-    better_s = better;
-    any_sg_s = any_sg;
-    const int rem_old = a.remaining[k];
+    const int rem_old = at(kRemaining);
     const int rem = act ? wadd(rem_old, -1) : rem_old;
     const bool done = act && (bu == bl || rem == 0);
-    const int it = a.iterations[k];
-    a.best_score_out[k] = better ? lower : best_score;
-    a.best_nlines_out[k] = better ? a.n_lines[k] : best_nlines;
-    a.best_upper_out[k] = bu;
-    a.best_lower_out[k] = bl;
-    a.nondecr_out[k] = act ? (halve ? 0 : wadd(nd, 1)) : nd_old;
-    a.step_factor_out[k] = sf;
-    a.remaining_out[k] = rem;
-    a.lane_active_out[k] = act && !done;
-    a.iterations_out[k] = wadd(it, act ? 1 : 0);
+    const int it = at(kIterations);
+    if (f == 0) {
+      // dual update (subgradient_solver.hpp:265-271): the step in the
+      // reference's order, step_factor * (ub - lb) / max(count, 1)
+      const int gap = static_cast<int>(static_cast<uint32_t>(bu) -
+                                       static_cast<uint32_t>(bl));
+      step_s = __fdiv_rn(__fmul_rn(sf, __int2float_rn(gap)),
+                         __int2float_rn(cnt > 1 ? cnt : 1));
+      flags_s = (act ? 1 : 0) | (better ? 2 : 0) | (any_sg ? 4 : 0);
+      a.best_score_out[k] = better ? lower : best_score;
+      a.best_nlines_out[k] = better ? n_lines : best_nlines;
+      a.best_upper_out[k] = bu;
+      a.best_lower_out[k] = bl;
+      a.nondecr_out[k] = act ? (halve ? 0 : wadd(nd, 1)) : nd_old;
+      a.step_factor_out[k] = sf;
+      a.remaining_out[k] = rem;
+      a.lane_active_out[k] = act && !done;
+      a.iterations_out[k] = wadd(it, act ? 1 : 0);
+      if (loop != nullptr) {
+        // this CTA's ticket and its lane's lane_active in one 64-bit add:
+        // the CTAs that came before in the low word, the active lanes
+        // among them in the high one.  Taken before the rows (the WHILE
+        // node reads the condition after the whole body), its result read
+        // after them.
+        const unsigned long long mine = 1ull | (act && !done ? 1ull << 32
+                                                             : 0ull);
+        ticket = atomicAdd(reinterpret_cast<unsigned long long*>(loop + 2),
+                           mine) + mine;
+      }
+    }
   }
   __syncthreads();
-  const bool act = act_s;
   const float step = step_s;
-  const size_t row = static_cast<size_t>(k) * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const int du = a.dual[row + i];
-    const int g = a.sg[row + i];
-    a.dual_out[row + i] =
-        act && g != 0
-            ? __float2int_rz(__fsub_rn(__int2float_rn(du),
-                                       __fmul_rn(step, __int2float_rn(g))))
-            : du;
+  const bool act = flags_s & 1, better = flags_s & 2, any_sg = flags_s & 4;
+  if (i0 < d)
+    store4<kVec>(a.dual_out + row, i0, d, dual_step(du, g, act, step));
+  if (i0 < slots) store_slots<kVec>(a, srow, i0, slots, sq, better, any_sg);
+  // entries and slots past the first four a thread (lanes longer than
+  // four times the block)
+  for (int i = i0 + stride; i < d; i += stride) {
+    const int4 u = load4<kVec>(a.dual + row, i, d);
+    const int4 s = load4<kVec>(a.sg + row, i, d);
+    store4<kVec>(a.dual_out + row, i, d, dual_step(u, s, act, step));
   }
-  const bool better = better_s;
-  const bool any_sg = any_sg_s;
-  const size_t srow = static_cast<size_t>(k) * slots;
-  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
-    const int p = a.partner[srow + s];
-    const int bp = a.best_partner[srow + s];
-    const bool bm = a.best_matched[srow + s];
-    const bool matched =
-        (any_sg ? a.used_slot[srow + s] : a.matched_cons_slot[srow + s]) &&
-        p >= 0;
-    a.best_partner_out[srow + s] = better ? p : bp;
-    a.best_matched_out[srow + s] = better ? matched : bm;
+  for (int s = i0 + stride; s < slots; s += stride)
+    store_slots<kVec>(a, srow, s, slots, load_slots<kVec>(a, srow, s, slots),
+                      better, any_sg);
+
+  // the last CTA to take a ticket sets the loop's condition for the next
+  // trip
+  if (threadIdx.x == 0 && loop != nullptr &&
+      static_cast<uint32_t>(ticket) == gridDim.x) {
+    const bool run = (ticket >> 32) != 0 && loop[0] > 0;
+    cudaGraphSetConditional(handle, run ? 1u : 0u);
+    if (run) {
+      loop[0] -= 1;
+      loop[1] += 1;
+    }
+    *reinterpret_cast<unsigned long long*>(loop + 2) = 0;
   }
 }
+// iteration_tail_kernel's arguments: TailArgs, three ints, then the
+// condition handle and the loop counters
+constexpr int kTailKernelArgs = 6;
 
 // Opt a kernel in to all the dynamic shared memory the current device
 // allows it (the opt-in maximum less the kernel's static shared memory),
@@ -689,18 +878,83 @@ int lara_iteration_lines(const int* partner, const int* dual_l,
 }
 
 // KI-tail over batch lanes of d dual entries and slots line slots; ptrs
-// holds n_ptrs device pointers in TailArgs' order.
+// holds n_ptrs device pointers in TailArgs' order.  One CTA a lane of
+// `threads` threads, 16-byte loads where `vec` (iteration_cuda.tail_grid
+// chooses them; this only checks that `vec` may load 16 bytes).  Outside a
+// loop graph: KI-tail sets no condition.
 int lara_iteration_tail(void* const* ptrs, int n_ptrs, int batch, int d,
-                        int slots, int max_nondecr, void* stream) {
-  if (n_ptrs != kTailPointers || batch < 1 || d < 1 || slots < 1)
+                        int slots, int max_nondecr, int threads, int vec,
+                        void* stream) {
+  if (n_ptrs != kTailPointers || batch < 1 || d < 1 || slots < 1 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (vec) {
+    bool aligned = d % 4 == 0 && slots % 4 == 0;
+    for (int i = 0; i < n_ptrs; ++i)
+      aligned = aligned && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+    if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
+  }
   TailArgs args;
   void** fields = reinterpret_cast<void**>(&args);
   for (int i = 0; i < kTailPointers; ++i) fields[i] = ptrs[i];
-  iteration_tail_kernel<<<batch, kTailThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      args, d, slots, max_nondecr);
+  const cudaGraphConditionalHandle none = 0;
+  const auto kernel =
+      vec ? iteration_tail_kernel<true> : iteration_tail_kernel<false>;
+  kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      args, d, slots, max_nondecr, none, nullptr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Fold the loop exit into the KI-tail of a loop body: give the one KI-tail
+// kernel node of `graph` (a WHILE node's body, before instantiation) the
+// condition `handle` and the loop counters `loop` (iterations left,
+// iterations run, then the CTAs' ticket, a zero 64-bit word), which its
+// launch outside the loop left unset.  Kernel nodes of other libraries,
+// whose parameters this runtime cannot read, are skipped.
+// cudaErrorSymbolNotFound unless the graph holds exactly one.
+int lara_iteration_tail_fold(void* graph, cudaGraphConditionalHandle handle,
+                             int* loop) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) err = cudaGraphGetNodes(g, nodes.data(), &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int found = 0;
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(node, &type);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (type != cudaGraphNodeTypeKernel) continue;
+    cudaKernelNodeParams kp = {};
+    err = cudaGraphKernelNodeGetParams(node, &kp);
+    if (err == cudaErrorInvalidDeviceFunction) {
+      // a kernel of another library (torch's): not KI-tail; clear the
+      // error this runtime recorded
+      (void)cudaGetLastError();
+      continue;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (kp.func != reinterpret_cast<void*>(iteration_tail_kernel<true>) &&
+        kp.func != reinterpret_cast<void*>(iteration_tail_kernel<false>))
+      continue;
+    if (kp.kernelParams == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the launch's arguments, copied out before the node's own copy goes,
+    // and the condition and the counters in place of its none
+    TailArgs targs = *static_cast<const TailArgs*>(kp.kernelParams[0]);
+    int ints[3];
+    for (int i = 0; i < 3; ++i)
+      ints[i] = *static_cast<const int*>(kp.kernelParams[1 + i]);
+    void* args[kTailKernelArgs] = {&targs,    ints,    ints + 1,
+                                   ints + 2, &handle, &loop};
+    kp.kernelParams = args;
+    err = cudaGraphKernelNodeSetParams(node, &kp);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++found;
+  }
+  return found == 1 ? 0 : static_cast<int>(cudaErrorSymbolNotFound);
 }
 
 }  // extern "C"

@@ -6,13 +6,24 @@
 // lara_loop_graph builds the graph of one dispatch around a captured
 // iteration (the body, a graph that torch captured):
 //
-//   loop_exit_kernel -> WHILE node { child graph: the body
-//                                    -> loop_exit_kernel }
+//   loop_exit_kernel -> WHILE node { child graph: the body }
+//
+// The kernel sets the WHILE node's condition for the first trip.  The body
+// ends in KI-tail (csrc/iteration.cu), which does the kernel's work for
+// every later trip: the copy of KI-tail in the WHILE node gets the node's
+// condition and the counters (lara_iteration_tail_fold); each of its CTAs
+// takes a ticket that carries the lanes it left active, and the last one
+// sets the condition for the next trip, so no second kernel runs in the
+// loop.  Torch's capture itself, and every launch of KI-tail outside the
+// loop, set no condition.  A body without exactly one KI-tail is refused.
 //
 // counters[0] holds the iterations the dispatch may still run (the host
-// sets it to max_steps before each launch) and counters[1] the bodies run.
-// loop_exit_kernel reduces lane_active and sets the WHILE node's condition
-// to counters[0] > 0 && any lane active; where it is set, it takes one from
+// sets it to max_steps before each launch) and counters[1] the bodies run;
+// counters[2] and [3] are KI-tail's ticket, a 64-bit word (the host zeroes
+// counters[1] to [3] before each launch, and KI-tail's last CTA the ticket
+// after each trip).  The kernel reduces lane_active (KI-tail counts it in
+// the tickets) and sets the WHILE node's condition to
+// counters[0] > 0 && any lane active; where it is set, it takes one from
 // counters[0] and adds one to counters[1].  So the body runs exactly as
 // often as the JAX loop's body, and a dispatch after the last lane is done
 // runs the kernel once and no body.  The host reads counters[1] when the
@@ -69,11 +80,19 @@ cudaError_t add_exit_kernel(cudaGraphNode_t* node, cudaGraph_t graph,
 
 extern "C" {
 
+// In csrc/iteration.cu, built into the same library: the body's KI-tail
+// is what evaluates the exit inside the loop, so this graph depends on
+// KI-tail's launch arguments through it.
+int lara_iteration_tail_fold(void* graph, cudaGraphConditionalHandle handle,
+                             int* loop);
+
 // Build and instantiate the graph of one dispatch: *graph_out and
 // *exec_out get its graph and executable graph (free both with
-// lara_loop_graph_free).  lane_active is [lanes] bool and counters two
-// int32, both on the card, at addresses that stay valid for the life of
-// the graph.
+// lara_loop_graph_free).  lane_active is [lanes] bool and counters four
+// int32 (the last two zero), both on the card, at addresses that stay
+// valid for the life of the graph.  The body's KI-tail evaluates the exit
+// after every trip: an error (cudaErrorSymbolNotFound) unless the body
+// holds exactly one KI-tail.
 int lara_loop_graph(void* body, const void* lane_active, int lanes,
                     void* counters, void** graph_out, void** exec_out) {
   *graph_out = nullptr;
@@ -110,16 +129,20 @@ int lara_loop_graph(void* body, const void* lane_active, int lanes,
     err = cudaGraphAddChildGraphNode(&child, inner, nullptr, 0,
                                      static_cast<cudaGraph_t>(body));
   }
+  cudaGraph_t cloned = nullptr;
   if (err == cudaSuccess) {
-    cudaGraphNode_t tail = nullptr;
-    err = add_exit_kernel(&tail, inner, &child, 1, handle, active, lanes,
-                          count);
+    err = cudaGraphChildGraphNodeGetGraph(child, &cloned);
+  }
+  if (err == cudaSuccess) {
+    err = static_cast<cudaError_t>(
+        lara_iteration_tail_fold(cloned, handle, count));
   }
   if (err == cudaSuccess) {
     err = cudaGraphInstantiate(&exec, graph, 0);
   }
   if (err != cudaSuccess) {
     cudaGraphDestroy(graph);
+    (void)cudaGetLastError();  // not left for the next launch to report
     return static_cast<int>(err);
   }
   *graph_out = graph;

@@ -8,11 +8,14 @@ whose ``cond`` is ``(steps_done < max_steps) & jnp.any(c.lane_active)``
 iteration (:func:`lara_tpu_torch.solver.device_solver._iteration`) is
 captured once per static configuration, and a dispatch is one launch of a
 graph that loops over it on the card: the loop exit's kernel and a WHILE
-node around the captured iteration (``csrc/loop_exit.cu``), the kernel
-evaluating ``cond`` before each iteration against a count of the
-iterations left that the host sets to ``max_steps``.  So a dispatch runs
-exactly the iterations of the JAX loop, and a dispatch after the last lane
-is done costs the launch and the kernel alone.
+node around the captured iteration (``csrc/loop_exit.cu``).  The kernel
+evaluates ``cond`` before the first iteration, and the iteration's last
+kernel, KI-tail, before every later one (its copy in the WHILE node sets
+the node's condition once every lane is written), each against a count of
+the iterations left that the host sets to ``max_steps``.  So a dispatch
+runs exactly the iterations of the JAX loop, no kernel but the body's runs
+in the loop, and a dispatch after the last lane is done costs the launch
+and the kernel alone.
 
 * **Key** (:func:`key_of`): the jit's static arguments, the device, B, D,
   NE, ``la_max``, ``lb_max``, ``max_nondecr``, ``lookahead``,
@@ -37,13 +40,12 @@ is done costs the launch and the kernel alone.
   of the carry, which no later dispatch overwrites.  No host
   synchronisation on the way.
 * **Launch counts**: the capture runs under
-  :func:`lara_tpu_torch._build.recording`; the loop exit's kernel counts
-  the iterations it lets run on the card, and
-  :func:`lara_tpu_torch._build.add_counted` adds the recorded launches,
-  and one of the loop exit's, that many times without waiting
-  (:func:`lara_tpu_torch._build.settle`, which :func:`release` calls,
-  makes them final); each launch of the graph counts the loop exit's
-  first run.
+  :func:`lara_tpu_torch._build.recording`; the loop exit counts the
+  iterations it lets run on the card, and
+  :func:`lara_tpu_torch._build.add_counted` adds the recorded launches
+  that many times without waiting (:func:`lara_tpu_torch._build.settle`,
+  which :func:`release` calls, makes them final); each launch of the
+  graph counts the loop exit's kernel once.
 * **Streams**: the capture runs on a side stream of the entry in
   thread-local mode (``torch.cuda.graph`` would synchronise the card and
   empty the allocator's caches under the pipeline's and the shards' other
@@ -119,12 +121,19 @@ class CudaGraph:
 
     def capture(self, fn, active=None, counters=None) -> None:
         """Capture ``fn``.  With ``active`` (a [B] bool tensor) and
-        ``counters`` (two int32: iterations left, iterations run), both on
-        the card for the life of the graph, a replay runs ``fn`` while
+        ``counters`` (four int32: iterations left, iterations run, and
+        KI-tail's ticket, a 64-bit word, the last three zero), both on the
+        card for the life of the graph, a replay runs ``fn`` while
         ``active.any()`` and iterations are left, taking one from the first
         counter and adding one to the second for each run
-        (``csrc/loop_exit.cu``)."""
+        (``csrc/loop_exit.cu``): ``fn`` must launch KI-tail exactly once,
+        with ``active`` its ``lane_active`` out, and KI-tail evaluates that
+        after each run (a ``fn`` without exactly one KI-tail raises)."""
         guarded = active is not None
+        if guarded and (counters.dtype != torch.int32
+                        or counters.numel() != 4 or not counters.is_cuda):
+            raise ValueError("the loop's counters are four int32 on the "
+                             "card")
         graph = torch.cuda.CUDAGraph(keep_graph=guarded)
         caller = torch.cuda.current_stream(self._device)
         with self._capture_lock:
@@ -237,8 +246,9 @@ class _Entry:
         self.carry = device_solver._Carry(*(t.clone() for t in carry))
         self.model_seen = _seen(model)
         self.carry_seen = _seen(carry)
-        # iterations left in the dispatch, iterations run (loop_exit.cu)
-        self.counters = torch.zeros(2, dtype=torch.int32,
+        # iterations left in the dispatch, iterations run, KI-tail's 64-bit
+        # ticket (loop_exit.cu); run() re-arms all four before each dispatch
+        self.counters = torch.zeros(4, dtype=torch.int32,
                                     device=self.carry.lane_active.device)
         self.per_body = None  # launches of one iteration in the loop
 
@@ -287,11 +297,11 @@ class _Entry:
     def capture(self) -> None:
         global last_capture_seconds
         start = time.perf_counter()
+        # the iteration ends in KI-tail, which evaluates the loop's exit
         with _build.recording() as record:
             self.graph.capture(self.step, self.carry.lane_active,
                                self.counters)
-        self.per_body = {**record,
-                         "loop_exit": record.get("loop_exit", 0) + 1}
+        self.per_body = record
         last_capture_seconds = time.perf_counter() - start
 
     def carry_out(self) -> device_solver._Carry:
@@ -364,7 +374,7 @@ def run(model: device_solver.BatchModel, carry: device_solver._Carry,
                 entry.warm_up()
                 entry.capture()
             entry.counters[0].fill_(steps)
-            entry.counters[1].zero_()
+            entry.counters[1:].zero_()  # bodies run, KI-tail's ticket
             entry.graph.replay()
             _build.add_counted(entry.per_body, entry.counters[1])
             out = entry.carry_out()

@@ -13,9 +13,15 @@ carry's own tensor (the dispatch graph's static carry, updated in place).
 KI-head and KI-lines spread a lane over several CTAs, so that the grid
 fills the card: KI-head in tiles of a lane's dual entries with a halo on
 each side (:func:`head_grid`), KI-lines as a thread-block cluster per long
-lane (:func:`lines_grid`).  Both choosers are pure functions of the shapes
-and the card's SM count, and own the grid: the kernels' entry points take
-it as given and only check that it covers the lane.
+lane (:func:`lines_grid`).  KI-tail takes four entries and four slots a
+thread, 16 bytes a load where the rows allow it (:func:`tail_grid`).  The
+choosers are pure functions of the shapes (and the card's SM count), and
+own the grid: the kernels' entry points take it as given and only check
+that it covers the lane.
+
+Inside the dispatch graph's loop KI-tail also sets the loop's condition
+(``csrc/loop_exit.cu``, ``dispatch_graph.CudaGraph.capture``); a launch
+through :func:`tail` never does.
 """
 
 from __future__ import annotations
@@ -106,6 +112,33 @@ def lines_grid(b: int, d: int, slots: int, cw: int, sms: int,
                          f"CTAs, not {cluster}")
     return LinesGrid(cluster, *lines_split(d, slots, cw, cluster),
                      b * cluster)
+
+
+class TailGrid(NamedTuple):
+    """KI-tail's launch: one CTA per lane of ``threads`` threads, four
+    dual entries and four line slots a thread, the block striding over a
+    longer lane; ``vec``: 16-byte loads."""
+
+    threads: int
+    vec: bool
+    ctas: int
+
+
+#: the most threads of a KI-tail CTA
+TAIL_MAX_THREADS = 1024
+
+
+def tail_grid(b: int, d: int, slots: int, aligned: bool = True) -> TailGrid:
+    """KI-tail's CTAs for ``b`` lanes of ``d`` entries and ``slots`` line
+    slots: one CTA a lane at every shape (2-8 CTAs a lane lost to it on
+    the card at every bench chunk: ``PERF.md``), a thread for each four
+    entries or slots of the longer row, in whole warps up to
+    :data:`TAIL_MAX_THREADS`.  16-byte loads where ``d`` and ``slots`` are
+    multiples of 4 and the rows are ``aligned`` (16 bytes)."""
+    vec = bool(aligned) and d % 4 == 0 and slots % 4 == 0
+    quads = max(1, -(-d // 4), -(-slots // 4))
+    threads = min(TAIL_MAX_THREADS, 32 * -(-quads // 32))
+    return TailGrid(threads, vec, b)
 
 
 def sm_count(dev: torch.device) -> int:
@@ -229,7 +262,7 @@ def tail(c, dual_at_queue, tb, ln, match_res, max_nondecr: int, out=None):
     """KI-tail: the next ``device_solver._Carry`` from the carry ``c``, the
     new ``dual_at_queue`` (KI-head's), the alignment ``tb``, KI-lines'
     ``ln`` and K3's ``match_res``; into ``out`` where given (it may be
-    ``c``), else into new tensors."""
+    ``c``), else into new tensors, on :func:`tail_grid`'s CTAs."""
     from lara_tpu_torch.solver.device_solver import _Carry
 
     b, d = c.dual.shape
@@ -264,11 +297,12 @@ def tail(c, dual_at_queue, tb, ln, match_res, max_nondecr: int, out=None):
     ptrs = [carry[f].data_ptr() for f in TAIL_CARRY] \
         + [t.data_ptr() for _, t, _, _ in inputs] \
         + [new[f].data_ptr() for f in TAIL_CARRY]
+    grid = tail_grid(b, d, slots, all(p % 16 == 0 for p in ptrs))
     if b:
         array = (ctypes.c_void_p * len(ptrs))(*ptrs)
         rc = _build.library().lara_iteration_tail(
-            array, len(ptrs), b, d, slots, int(max_nondecr),
-            _build.stream_of(c.dual))
+            array, len(ptrs), b, d, slots, int(max_nondecr), grid.threads,
+            int(grid.vec), _build.stream_of(c.dual))
         _build.check(rc, "iteration_tail")
         _build.count("iteration_tail")
     return _Carry(dual_at_queue=dual_at_queue, **new)

@@ -963,8 +963,9 @@ def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
     loop: dispatches of 7 and then 5 iterations from the same carry give
     every carry field of the eager ones, with no host sync in the graphed
     dispatches, one capture, K1, K2 and K3 once per iteration the loop
-    exit let run, as many as the longest lane ran, and the loop exit's
-    kernel once per dispatch and once per iteration."""
+    exit let run, as many as the longest lane ran, the loop exit's kernel
+    once per dispatch (KI-tail evaluates the exit after each iteration),
+    and KI-tail's ticket 0 after them."""
     from lara_tpu_torch.app import enumerate_pairs
     from lara_tpu_torch.io.records import InputStorage
     from lara_tpu_torch.params import Parameters
@@ -1000,22 +1001,23 @@ def test_dispatch_graph_matches_eager_on_card(cuda, tmp_path):
     for g, w in zip(got, want):
         for name, x, y in zip(device_solver._Carry._fields, g, w):
             _int_equal(x, y, name)
-    assert len(dispatch_graph._entries) == 1
+    (entry,) = dispatch_graph._entries
+    assert not entry.counters[2:].any()
     dispatch_graph.release()
     ran = int(want[1].iterations.max())
     assert 0 < ran <= 12
     assert {k: n for k, n in _build.launches.items() if n} == {
         "gotoh_dp": ran, "gotoh_tb": ran, "matching_rounds": ran,
         **dict.fromkeys(ITERATION, ran),
-        "loop_exit": 2 + ran}
+        "loop_exit": 2}
 
 
 def test_loop_exit_skips_after_the_last_lane_on_card(cuda):
     """The structure-free tRNA chunk (``make_family(n=4)`` without its
     base-pair edges: 6 pairs, every lane done in its first iteration): a
     graphed dispatch of 125 runs one iteration, the loop exit's kernel
-    twice, and gives the eager loop's carry; ``solve_batch`` ends after the
-    late dispatch."""
+    once (KI-tail ends the loop after the iteration), and gives the eager
+    loop's carry; ``solve_batch`` ends after the late dispatch."""
     from lara_tpu_torch.app import enumerate_pairs
     from lara_tpu_torch.params import Parameters
     from lara_tpu_torch.solver import (device_driver, device_solver,
@@ -1047,7 +1049,7 @@ def test_loop_exit_skips_after_the_last_lane_on_card(cuda):
     assert {k: n for k, n in _build.launches.items() if n} == {
         "gotoh_dp": 1, "gotoh_tb": 1, "matching_rounds": 1,
         **dict.fromkeys(ITERATION, 1),
-        "loop_exit": 2}
+        "loop_exit": 1}
     steps = []
     real = device_solver.solve_batch_chunk
 
@@ -1417,3 +1419,145 @@ def test_iteration_tail_keeps_the_reference_order(cuda):
     torch.cuda.synchronize()
     _tuple_equal(got, plain, "carry")
     assert np.array_equal(got.dual[:, 1].cpu().numpy(), want[pick])
+
+
+# KI-tail alone (b, d, slots): the tRNA, ~300 nt and 16S chunks' shapes, a
+# ragged D and odd slots (no 16-byte loads), and lanes longer than four
+# entries a thread of a full block (D=8192 and 4100 slots: each thread
+# loops)
+TAIL_CASES = [(128, 1024, 96), (32, 1024, 320), (32, 3072, 1536),
+              (40, 1021, 33), (16, 8192, 4100)]
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["new", "in-place"])
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_tail_kernel_matches_plain_on_every_kind_of_lane(case, in_place,
+                                                         cuda):
+    """KI-tail against ``tail_plain`` on the card, every output bit for
+    bit, on lanes inactive, halving, with count 0 and count > 1, and with
+    ``best_upper - best_lower`` wrapping (``tail_cases.tail_inputs``, each
+    kind present), into new tensors and in place (``out=c``, as the
+    dispatch graph runs it); launched once."""
+    from lara_tpu_torch.solver import device_solver, iteration_cuda
+    from lara_tpu_torch.solver import tail_cases
+
+    b, d, slots = case
+    nd = tail_cases.MAX_NONDECR
+    c, tb, ln, match = tail_cases.tail_inputs(b, d, slots, 5 + d, cuda)
+    want = device_solver.tail_plain(c, c.dual_at_queue, tb, ln, match, nd)
+    assert all(tail_cases.lane_kinds(c, ln, want).values())
+    out = device_solver._Carry(*(t.clone() for t in c)) if in_place \
+        else None
+    src = out if in_place else c
+    before = _build.launches["iteration_tail"]
+    got = iteration_cuda.tail(src, src.dual_at_queue, tb, ln, match, nd,
+                              out=out)
+    torch.cuda.synchronize()
+    assert _build.launches["iteration_tail"] == before + 1
+    if in_place:
+        assert all(g is o for g, o in zip(got, out))
+    _tuple_equal(got, want, "carry")
+
+
+def _loop_body(b, d, slots, dev, remaining):
+    """A loop graph whose body counts its runs and runs KI-tail in place on
+    ``tail_cases.tail_inputs`` (``remaining`` iterations left on every
+    lane), as the dispatch graph runs the iteration: (graph, counters,
+    runs, carry, KI-tail's other inputs)."""
+    from lara_tpu_torch.solver import dispatch_graph, iteration_cuda
+    from lara_tpu_torch.solver import tail_cases
+
+    c, tb, ln, match = tail_cases.tail_inputs(b, d, slots, 17, dev,
+                                              remaining=remaining)
+    counters = torch.zeros(4, dtype=torch.int32, device=dev)
+    runs = torch.zeros((), dtype=torch.int32, device=dev)
+    graph = dispatch_graph.CudaGraph(dev)
+    graph.capture(lambda: (runs.add_(1), iteration_cuda.tail(
+        c, c.dual_at_queue, tb, ln, match, tail_cases.MAX_NONDECR, out=c)),
+        c.lane_active, counters)
+    return graph, counters, runs, c, (tb, ln, match)
+
+
+def _launch(graph, counters, runs, left):
+    counters[0].fill_(left)
+    counters[1:].zero_()
+    runs.zero_()
+    graph.replay()
+    return (int(runs), int(counters[1]), int(counters[0]),
+            int(counters[2:].abs().sum()))
+
+
+# (lanes active, remaining, iterations left, bodies run)
+FOLD_CASES = {"none": ("none", 10**6, 3, 0), "first": ("first", 10**6, 3, 3),
+              "last": ("last", 10**6, 3, 3),
+              "random": ("random", 10**6, 3, 3), "all": ("all", 10**6, 3, 3),
+              "budget": ("all", 10**6, 9, 9),
+              "second run": ("all", 2, 5, 2)}
+
+
+@pytest.mark.parametrize("b,d,slots", [(32, 1024, 96), (40, 1021, 33)])
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_loop_exit_folded_into_tail(case, b, d, slots, cuda):
+    """The WHILE node around a body that ends in KI-tail, with no exit
+    kernel in the loop: it runs the body while a lane is active and
+    iterations are left, counting each run (none, the first, the last,
+    random and every lane active; the budget running out; every lane
+    ending on the body's second run), and KI-tail's ticket is 0 after
+    the launch."""
+    graph, counters, runs, c, _inputs = _loop_body(
+        b, d, slots, cuda, FOLD_CASES[case][1])
+    which, _remaining, left, want = FOLD_CASES[case]
+    mask = {"none": np.zeros(b, bool), "first": np.arange(b) == 0,
+            "last": np.arange(b) == b - 1,
+            "random": np.random.default_rng(3).random(b) < 0.5,
+            "all": np.ones(b, bool)}[which]
+    c.lane_active.copy_(torch.from_numpy(mask))
+    try:
+        assert _launch(graph, counters, runs, left) == (want, want,
+                                                        left - want, 0)
+    finally:
+        graph.close()
+
+
+def test_tail_outside_the_loop_sets_no_condition(cuda):
+    """KI-tail launched eagerly and the capture replayed bare, after a
+    loop ran, leave the loop's counters as they were, and the loop then
+    runs as before."""
+    from lara_tpu_torch.solver import iteration_cuda
+
+    graph, counters, runs, c, (tb, ln, match) = _loop_body(
+        32, 1024, 96, cuda, 10**6)
+    try:
+        c.lane_active.fill_(True)
+        assert _launch(graph, counters, runs, 3) == (3, 3, 0, 0)
+        graph._graph.instantiate()
+        iteration_cuda.tail(c, c.dual_at_queue, tb, ln, match, 5, out=c)
+        graph._graph.replay()
+        torch.cuda.synchronize()
+        assert [int(x) for x in counters] == [0, 3, 0, 0]
+        assert int(runs) == 4
+        assert _launch(graph, counters, runs, 4) == (4, 4, 0, 0)
+    finally:
+        graph.close()
+
+
+def test_loop_graph_needs_one_tail(cuda):
+    """A loop graph around a body without KI-tail, or with two, raises (the
+    fold finds no one kernel to give the condition) and builds nothing; no
+    exit kernel takes KI-tail's place in the loop."""
+    from lara_tpu_torch.solver import dispatch_graph, iteration_cuda
+    from lara_tpu_torch.solver import tail_cases
+
+    c, tb, ln, match = tail_cases.tail_inputs(4, 64, 8, 3, cuda)
+    counters = torch.zeros(4, dtype=torch.int32, device=cuda)
+    runs = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def tail():
+        iteration_cuda.tail(c, c.dual_at_queue, tb, ln, match, 5, out=c)
+
+    for body in (lambda: runs.add_(1), lambda: (tail(), tail())):
+        graph = dispatch_graph.CudaGraph(cuda)
+        with pytest.raises(_build.KernelLaunchError):
+            graph.capture(body, c.lane_active, counters)
+        assert graph._loop is None
+        graph.close()

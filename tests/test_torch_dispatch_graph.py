@@ -7,7 +7,8 @@ replaced: :class:`RecordingGraph` records the captured callable without
 running it and runs it on each replay.  A replay
 is the card's loop: while iterations are left and the captured predicate,
 ``lane_active.any()``, holds, it runs the body, counting it as the loop
-exit's kernel (``csrc/loop_exit.cu``) does on the card.  The key, the
+exit does on the card (``csrc/loop_exit.cu``: its kernel before the first
+run, the body's KI-tail after each).  The key, the
 cache, the warm-up on scratch copies, the copy-in of model and carry, the
 iteration budget, the copy-out and the launch bookkeeping are the card's
 code.  The same numpy batch
@@ -52,7 +53,10 @@ class RecordingGraph:
     the callable and its predicate without running them; ``replay`` runs
     the callable once, or with a predicate, as the card's loop does, while
     iterations are left (``counters[0]``) and the predicate holds, counting
-    each run in ``counters[1]``."""
+    each run in ``counters[1]``.  The loop exit's kernel counts once per
+    replay, as ``CudaGraph.replay`` counts it (the body's KI-tail evaluates
+    the exit after each run); the ticket, ``counters[2:]``, is zero around
+    each replay."""
 
     captures = 0
     closed = 0
@@ -71,10 +75,13 @@ class RecordingGraph:
 
     def capture(self, fn, active=None, counters=None):
         type(self).captures += 1
+        if active is not None:
+            assert counters.dtype == torch.int32 and counters.numel() == 4
         self.fn, self.active, self.counters = fn, active, counters
 
     def _go(self):
-        left, ran = self.counters
+        left, ran, *ticket = self.counters
+        assert not any(ticket)
         if int(left) <= 0 or not bool(self.active.any()):
             return False
         left -= 1
@@ -314,7 +321,8 @@ def test_launch_counts_are_iterations_times_kernels(batch, graph,
                                                     monkeypatch):
     """``_build.launches`` after dispatches of 7 and 5 iterations: K1, K2
     and K3 once per executed iteration, as many as the longest lane ran
-    (the batch converges in its first: 1 of the 12 dispatched)."""
+    (the batch converges in its first: 1 of the 12 dispatched), and the
+    loop exit's kernel once per dispatch."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     tmodel = convert.model_to_torch(model, CPU)
@@ -324,10 +332,30 @@ def test_launch_counts_are_iterations_times_kernels(batch, graph,
     ran = int(out.iterations.max())
     (entry,) = dispatch_graph._entries
     assert ran == entry.graph.executed == 1 and entry.graph.replays == 2
-    # the loop exit: once per dispatch, and after each iteration
+    assert not entry.counters[2:].any()
+    # the loop exit's kernel: once per dispatch (KI-tail after each
+    # iteration)
     assert {k: n for k, n in _build.launches.items() if n} == {
         "gotoh_dp": ran, "gotoh_tb": ran, "matching_rounds": ran,
-        "loop_exit": 2 + ran}
+        "loop_exit": 2}
+
+
+def test_every_dispatch_rearms_the_ticket(batch, graph):
+    """A ticket left non-zero (``counters[2:]``) does not reach the next
+    dispatch: the host zeroes it with the bodies run before each launch,
+    so the loop still runs (the stand-in's loop refuses a non-zero
+    ticket, as the card's loop would never end on one)."""
+    model, go, ge = batch
+    b, d = model.dual_l.shape
+    tmodel = convert.model_to_torch(model, CPU)
+    out = _chunk(tmodel, _carry0(b, d), 7, go, ge)
+    (entry,) = dispatch_graph._entries
+    entry.counters[2:] = torch.tensor([5, 1], dtype=torch.int32)
+    fresh = _chunk(tmodel, _carry0(b, d), 7, go, ge)
+    assert entry.graph.replays == 2 and entry.graph.executed == 2
+    assert int(entry.counters[1]) == int(fresh.iterations.max()) == 1
+    for name, x, y in zip(device_solver._Carry._fields, fresh, out):
+        assert torch.equal(x, y), name
 
 
 class CardCountGraph(RecordingGraph):
@@ -353,7 +381,8 @@ def test_capture_launches_are_added_per_replay(batch, monkeypatch):
     ``launches`` and added once per iteration the loop exit let run (the
     count on the card, settled by ``release``), so the count is again the
     executed iterations times the kernels per iteration; the loop exit's
-    kernel counts once per dispatch and once per iteration."""
+    kernel counts once per dispatch (KI-tail evaluates the exit in the
+    loop)."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     monkeypatch.setattr(dispatch_graph, "Graph", CardCountGraph)
@@ -363,11 +392,11 @@ def test_capture_launches_are_added_per_replay(batch, monkeypatch):
     _chunk(tmodel, _chunk(tmodel, _carry0(b, d), 7, go, ge), 5, go, ge)
     (entry,) = dispatch_graph._entries
     assert entry.per_body == {"gotoh_dp": 1, "gotoh_tb": 1,
-                              "matching_rounds": 1, "loop_exit": 1}
+                              "matching_rounds": 1}
     assert entry.graph.replays == 2 and entry.graph.executed == 1
     dispatch_graph.release()
     assert {k: n for k, n in _build.launches.items() if n} == {
-        "gotoh_dp": 1, "gotoh_tb": 1, "matching_rounds": 1, "loop_exit": 3}
+        "gotoh_dp": 1, "gotoh_tb": 1, "matching_rounds": 1, "loop_exit": 2}
 
 
 def test_recording_is_per_thread():

@@ -23,11 +23,12 @@ import jax.numpy as jnp
 from lara_tpu.solver import device_solver as jax_solver
 from lara_tpu_torch import convert
 from lara_tpu_torch.ops import gotoh, gotoh_cuda
-from lara_tpu_torch.solver import device_solver, dispatch_graph
+from lara_tpu_torch.solver import device_solver, dispatch_graph, tail_cases
 from lara_tpu_torch.solver.matching_device import RoundsResult, rounds_loop
 from lara_tpu_torch.types import INFINITY, PSSM_INIT
 
-from tests.test_torch_cuda import iteration_case, iteration_tensors
+from tests.test_torch_cuda import (TAIL_CASES, iteration_case,
+                                   iteration_tensors)
 from tests.test_torch_dispatch_graph import RecordingGraph
 from tests.test_torch_loop_exit import Batch
 from tests.test_device_solver import write_family
@@ -317,6 +318,30 @@ def _tail_inputs(case, seed):
     match = RoundsResult(score=ints(0, 900), used_slot=torch.from_numpy(
         rng.random((b, la_max)) < 0.5))
     return tc, head.dual_at_queue, tb, lines, match
+
+
+# the crafted KI-tail carries (``tail_cases.tail_inputs``) of the card
+# tests and ``chip_smoke.py``: (b, d, slots, seed)
+CRAFTED_TAILS = [(b, d, slots, 5 + d) for b, d, slots in TAIL_CASES] + [
+    (128, 1024, 96, 90), (32, 1024, 320, 91), (32, 3072, 1536, 92),
+    (40, 1021, 33, 93)]
+
+
+@pytest.mark.parametrize("b,d,slots,seed", CRAFTED_TAILS)
+def test_crafted_tail_carry_holds_every_kind_of_lane(b, d, slots, seed):
+    """The crafted carries that the card holds KI-tail to hold every kind
+    of lane the kernel treats apart (inactive, halving, count 0, count >
+    1, wrapping bounds), and on them KI-tail's plain version equals the
+    lane-by-lane reference."""
+    nd = tail_cases.MAX_NONDECR
+    c, tb, ln, match = tail_cases.tail_inputs(b, d, slots, seed, CPU)
+    got = device_solver.tail_plain(c, c.dual_at_queue, tb, ln, match, nd)
+    kinds = tail_cases.lane_kinds(c, ln, got)
+    assert all(kinds.values()), kinds
+    want = _tail_reference(c, c.dual_at_queue, tb, ln, match, nd)
+    for name in device_solver._Carry._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(), want[name],
+                                      err_msg=name)
 
 
 @pytest.mark.parametrize("lane_case", ["count 0", "inactive",

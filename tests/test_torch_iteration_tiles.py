@@ -450,3 +450,51 @@ def test_lines_grid_refuses_clusters_above_8():
         iteration_cuda.lines_grid(4, 64, 8, 32, SMS, cluster=9)
     assert iteration_cuda.lines_grid(4, 64, 8, 32, SMS, cluster=3).cluster \
         == 3
+
+
+def _tail_reach(grid, d, slots):
+    """How often KI-tail's threads, as the kernel indexes them, touch each
+    dual entry and each line slot of a lane: thread x its four from 4x,
+    then every 4 * threads further, each of the four below the row's
+    end."""
+    reach = []
+    for n in (d, slots):
+        hits = np.zeros(n, np.int64)
+        for x in range(grid.threads):
+            for i in range(4 * x, n, 4 * grid.threads):
+                hits[i:min(i + 4, n)] += 1
+        reach.append(hits)
+    return reach
+
+
+@pytest.mark.parametrize("d,slots", [(1, 1), (3, 7), (4, 4), (64, 20),
+                                     (300, 33), (1021, 33), (1024, 96),
+                                     (1024, 320), (3072, 1536), (4097, 5),
+                                     (5, 4097), (8192, 4100)])
+def test_tail_grid_covers_every_entry_once(d, slots):
+    """KI-tail's grid at any D and slots: one CTA per lane, whole warps of
+    32 to 1024 threads with a quad each of the longer row up to 1024
+    threads, and every entry and slot reached by exactly one thread."""
+    grid = iteration_cuda.tail_grid(7, d, slots)
+    assert grid.ctas == 7
+    assert grid.threads % 32 == 0
+    assert grid.threads == min(iteration_cuda.TAIL_MAX_THREADS,
+                               max(32, -(-max(-(-d // 4), -(-slots // 4))
+                                         // 32) * 32))
+    for hits in _tail_reach(grid, d, slots):
+        assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("d,slots,aligned,vec", [
+    (1024, 96, True, True), (3072, 1536, True, True),
+    (1024, 96, False, False), (1021, 96, True, False),
+    (1024, 33, True, False), (2, 4, True, False), (4, 4, True, True)])
+def test_tail_grid_loads_16_bytes_only_on_aligned_rows(d, slots, aligned,
+                                                       vec):
+    """16-byte loads where D and the slots are multiples of 4 and the rows
+    16-byte aligned (every entry's row then starts on 16 bytes, and every
+    thread's quad too); else the scalar path."""
+    grid = iteration_cuda.tail_grid(2, d, slots, aligned)
+    assert grid.vec is vec
+    if grid.vec:
+        assert (d * 4) % 16 == 0 and slots % 4 == 0

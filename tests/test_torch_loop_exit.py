@@ -165,6 +165,7 @@ def test_structure_free_dispatch_matches_jax_trips(structure_free, graph):
     assert entry.graph.replays == 1
     assert entry.graph.executed == int(entry.counters[1]) == trips
     assert int(entry.counters[0]) == 125 - trips
+    assert not entry.counters[2:].any()
 
 
 def test_bodies_per_dispatch_follow_the_jax_trips(converging, graph,
@@ -173,7 +174,8 @@ def test_bodies_per_dispatch_follow_the_jax_trips(converging, graph,
     each one the graph's carry equals the JAX carry, its executed bodies
     equal that dispatch's ``while_loop`` trips (7 seven times, then 3 and
     0), and K1, K2 and K3 are counted once per executed body, the loop
-    exit's kernel once per dispatch and once per body."""
+    exit's kernel once per dispatch (the body's KI-tail evaluates the exit
+    after each body)."""
     cv = converging
     _count_kernels(monkeypatch)
     _build.reset_launches()
@@ -195,7 +197,8 @@ def test_bodies_per_dispatch_follow_the_jax_trips(converging, graph,
     dispatch_graph.release()
     assert {k: n for k, n in _build.launches.items() if n} == {
         "gotoh_dp": 52, "gotoh_tb": 52, "matching_rounds": 52,
-        "loop_exit": 9 + 52}
+        "loop_exit": 9}
+    assert not entry.counters[2:].any()
 
 
 def _spied_dispatches(monkeypatch, module):
