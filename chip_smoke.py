@@ -573,7 +573,6 @@ def _structure_free_path(dev, tmp):
     and K3 launched once (the JAX loop's one trip) in the 250 iterations
     dispatched (the first dispatch and the late one), and the solve phase
     beside the capture's seconds.  Returns the run's launch counts."""
-    from lara_tpu_torch.solver import dispatch_graph
     from lara_tpu_torch.utils import timing
     from lara_tpu_torch.workloads import make_family
 
@@ -588,8 +587,9 @@ def _structure_free_path(dev, tmp):
     if ran != [(1, 250)]:
         raise AssertionError(f"{label}: ran {ran}, expected one iteration "
                              "of 250 dispatched")
-    solve_s = timing.snapshot()["subgradient solve (device)"]
-    capture_s = dispatch_graph.last_capture_seconds
+    phases = timing.snapshot()
+    solve_s = phases["subgradient solve (device)"]
+    capture_s = phases["graph capture"]
     print(f"    {label}: solve phase {solve_s:.6f} s, of it the capture "
           f"{capture_s:.6f} s, the rest {solve_s - capture_s:.6f} s")
     return run[0]
@@ -1836,10 +1836,12 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
 
     from lara_tpu_torch import _build
     from lara_tpu_torch.solver import device_driver, dispatch_graph
+    from lara_tpu_torch.utils import timing
 
     with _env(env):
         batch, how, carry0, models = _chunk_batch(records, dev)
         dispatch_graph.release()
+        timing.reset()
         peaks, walls, carries = {}, {}, {}
         for way in ("eager", "graph"):
             first = carry0()
@@ -1859,7 +1861,7 @@ def _graph_phase(label, records, dev, expect, env=None, steps=125):
             walls[way] = time.perf_counter() - start
             peaks[way] = torch.cuda.max_memory_allocated(dev) - base
             carries[way] = (one, two)
-        capture_s = dispatch_graph.last_capture_seconds
+        capture_s = timing.snapshot()["graph capture"]
         tickets = [int(e.counters[2:].abs().sum())
                    for e in dispatch_graph._entries]
         dispatch_graph.release()  # settles the graphed launch counts

@@ -62,8 +62,9 @@ def run(params: Parameters, device: torch.device = None,
     process (:func:`lara_tpu_torch.parallel.mesh.pair_devices`: each
     visible card, or the CPU under ``LARA_PLATFORM=cpu``), a chunk's lanes
     split over them; ``--backend reference`` runs the NumPy scalar mirror.
-    With ``LARA_PROFILE=<dir>`` the solve is traced with ``torch.profiler``
-    into ``<dir>``.
+    With ``LARA_PROFILE=<dir>`` the run, from reading the input to writing
+    the results, is traced with ``torch.profiler`` into ``<dir>``, its
+    phases (:mod:`lara_tpu_torch.utils.timing`) as ranges ``phase:<name>``.
 
     Several hosts (``lara_tpu/app.py:96-166``): with the device backend and
     the coordinator variables set (:func:`mesh.distributed_init`), each
@@ -84,7 +85,8 @@ def run(params: Parameters, device: torch.device = None,
             devices = mesh.pair_devices(
                 devices if devices is not None
                 else None if device is None else [device])
-        return _run(params, devices, multihost, time_start)
+        with timing.maybe_trace():
+            return _run(params, devices, multihost, time_start)
     finally:
         mesh.distributed_shutdown()
 
@@ -113,11 +115,12 @@ def _run(params: Parameters, devices, multihost: bool,
 
         solved = device_driver.solve_all(store, pairs, params, devices)
     results = []
-    with timing.maybe_trace(), timing.phase("solve"):
+    with timing.phase("solve"):
         for result in solved:
             if not multihost:
-                outlib.add_alignment(result.seq_indices, result.columns,
-                                     result.score)
+                with timing.phase("library add (host)"):
+                    outlib.add_alignment(result.seq_indices, result.columns,
+                                         result.score)
             results.append(result)
         if multihost:
             with timing.phase("gather results (hosts)"):

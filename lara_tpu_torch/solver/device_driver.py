@@ -473,7 +473,8 @@ def _run_refill(store, task: _Task, params: Parameters,
                 model, carry, go, ge, la_max, lb_max, steps,
                 int(params.max_nondecr_iterations), int(params.matching),
                 scan_steps)
-            flags = carry.lane_active.cpu().numpy()
+            with timing.phase("dispatch flag wait (host)"):
+                flags = carry.lane_active.cpu().numpy()
         dispatches += 1
         occupied += sum(1 for k in range(bp)
                         if lane_pair[k] is not None and flags[k])
@@ -518,16 +519,17 @@ def _filter_and_build(store, chunk, params: Parameters, la_max: int,
     go, ge = int(params.gap_open_int), int(params.gap_extend_int)
     subopt = int(f2i(params.suboptimal_diff))
 
-    seq_a = np.full((b, la_max), 4, np.int32)
-    seq_b = np.full((b, lb_max), 4, np.int32)
-    las = np.zeros(b, np.int32)
-    lbs = np.zeros(b, np.int32)
-    for k, (ia, ib) in enumerate(chunk):
-        ea = encode_rna5(store[ia].sequence)
-        eb = encode_rna5(store[ib].sequence)
-        las[k], lbs[k] = len(ea), len(eb)
-        seq_a[k, : len(ea)] = ea
-        seq_b[k, : len(eb)] = eb
+    with timing.phase("edge filter inputs (host)"):
+        seq_a = np.full((b, la_max), 4, np.int32)
+        seq_b = np.full((b, lb_max), 4, np.int32)
+        las = np.zeros(b, np.int32)
+        lbs = np.zeros(b, np.int32)
+        for k, (ia, ib) in enumerate(chunk):
+            ea = encode_rna5(store[ia].sequence)
+            eb = encode_rna5(store[ib].sequence)
+            las[k], lbs[k] = len(ea), len(eb)
+            seq_a[k, : len(ea)] = ea
+            seq_b[k, : len(eb)] = eb
 
     log(2, f"     device chunk: {b} pairs padded to {la_max}x{lb_max}")
 
@@ -539,7 +541,9 @@ def _filter_and_build(store, chunk, params: Parameters, la_max: int,
             upload(seq_a), upload(seq_b), upload(las), upload(lbs),
             upload(np.asarray(params.score_matrix, np.int32)), go, ge,
             subopt, la_max, lb_max).cpu().numpy()
-        active_np, opt_np = gotoh.unskew_active_words(packed, la_max, lb_max)
+        with timing.phase("edge filter: unskew (host)"):
+            active_np, opt_np = gotoh.unskew_active_words(packed, la_max,
+                                                          lb_max)
 
     with timing.phase("interaction build (host)"):
         def build(k_pair):
@@ -765,8 +769,10 @@ def _pack_models(models, params: Parameters, la_max: int, lb_max: int,
                                               n), device)
         else:
             submat = np.asarray(params.score_matrix, np.int32)
-            buf = _packed_buffer(models, la_max, lb_max, dcap, n,
-                                 submat.shape[0], pin=device.type == "cuda")
+            with timing.phase("model packing: host buffer"):
+                buf = _packed_buffer(models, la_max, lb_max, dcap, n,
+                                     submat.shape[0],
+                                     pin=device.type == "cuda")
             batch = _unpack_model(buf.to(device, non_blocking=True),
                                   torch.from_numpy(submat).to(device),
                                   la_max, lb_max, dcap)
@@ -829,28 +835,31 @@ def _download_result(result: device_solver.BatchResult, params: Parameters):
 def _postprocess_lane(packed, s: int, k: int, pair, model,
                       params: Parameters, la_len: int) -> PairResult:
     """One lane of a packed result download -> PairResult
-    (``lara_tpu/solver/device_driver.py:885``)."""
-    ia, ib = pair
-    linear = bool(params.library_score_is_linear)
-    pk = packed[k, :s][:la_len]
-    a_pos = np.nonzero(pk >= 0)[0]
-    best_nlines = int(packed[k, 2 * s])
-    assert len(a_pos) == best_nlines, "partner/count mismatch"
-    lines = [(int(a), int(pk[a])) for a in a_pos]
-    matched = packed[k, s:2 * s].astype(bool)[a_pos]
-    dual_q = packed[k, 2 * s + 4:][: len(model.dual_l)] if linear else None
-    columns = _structure_columns(model, params, lines, matched, dual_q)
-    if ia > ib:
-        columns = [(y, x, w) for (x, y, w) in columns]
-    best_lower = int(packed[k, 2 * s + 1])
-    return PairResult(
-        seq_indices=(min(ia, ib), max(ia, ib)),
-        columns=columns,
-        score=best_lower,
-        iterations=int(packed[k, 2 * s + 3]),
-        best_upper=int(packed[k, 2 * s + 2]),
-        best_lower=best_lower,
-    )
+    (``lara_tpu/solver/device_driver.py:885``), timed as the phase
+    "result postprocess (host)" on the thread that runs it."""
+    with timing.phase("result postprocess (host)"):
+        ia, ib = pair
+        linear = bool(params.library_score_is_linear)
+        pk = packed[k, :s][:la_len]
+        a_pos = np.nonzero(pk >= 0)[0]
+        best_nlines = int(packed[k, 2 * s])
+        assert len(a_pos) == best_nlines, "partner/count mismatch"
+        lines = [(int(a), int(pk[a])) for a in a_pos]
+        matched = packed[k, s:2 * s].astype(bool)[a_pos]
+        dual_q = packed[k, 2 * s + 4:][: len(model.dual_l)] if linear \
+            else None
+        columns = _structure_columns(model, params, lines, matched, dual_q)
+        if ia > ib:
+            columns = [(y, x, w) for (x, y, w) in columns]
+        best_lower = int(packed[k, 2 * s + 1])
+        return PairResult(
+            seq_indices=(min(ia, ib), max(ia, ib)),
+            columns=columns,
+            score=best_lower,
+            iterations=int(packed[k, 2 * s + 3]),
+            best_upper=int(packed[k, 2 * s + 2]),
+            best_lower=best_lower,
+        )
 
 
 def _structure_columns(model, params: Parameters, lines, matched, dual_q):

@@ -57,6 +57,7 @@ from lara_tpu_torch.types import INFINITY, PSSM_INIT
 from lara_tpu_torch.ops import gotoh_cuda, gotoh_plan
 from lara_tpu_torch.solver import iteration_cuda
 from lara_tpu_torch.solver.matching_device import greedy_matching_queue
+from lara_tpu_torch.utils import timing
 
 I32 = torch.int32
 F32 = torch.float32
@@ -222,7 +223,8 @@ def solve_batch(model: BatchModel, go, ge, step_factor0, la_max: int,
     any-lane-active flag is read after the next one is queued
     (``lara_tpu/solver/device_solver.py:284-297``): the solve ends one
     dispatch after the one in which the last lane finished, and that
-    dispatch runs no iteration."""
+    dispatch runs no iteration.  The host's wait on a flag is the phase
+    "dispatch flag wait (host)"."""
     dispatch = dispatch_size()
     b = model.seq_score.shape[0]
     d = model.dual_l.shape[1]
@@ -235,8 +237,11 @@ def solve_batch(model: BatchModel, go, ge, step_factor0, la_max: int,
         carry = solve_batch_chunk(model, carry, go, ge, la_max, lb_max,
                                   steps, max_nondecr, lookahead, scan_steps)
         total += steps
-        if pending is not None and not pending.read():
-            break
+        if pending is not None:
+            with timing.phase("dispatch flag wait (host)"):
+                alive = pending.read()
+            if not alive:
+                break
         pending = _Flag(carry.lane_active) if total < num_iterations \
             else None
     return _result_of(carry)

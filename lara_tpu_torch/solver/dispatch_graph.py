@@ -38,7 +38,9 @@ and the kernel alone.
   border codes, the shared-memory opt-in; it changes nothing); set the
   iterations left to ``max_steps``; launch the graph once; return a clone
   of the carry, which no later dispatch overwrites.  No host
-  synchronisation on the way.
+  synchronisation on the way.  The host's side of a dispatch is the
+  phase "dispatch (host)", and within it the phases "graph warm-up" and
+  "graph capture" (:mod:`lara_tpu_torch.utils.timing`).
 * **Launch counts**: the capture runs under
   :func:`lara_tpu_torch._build.recording`; the loop exit counts the
   iterations it lets run on the card, and
@@ -76,7 +78,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-import time
 import weakref
 from typing import List, NamedTuple
 
@@ -85,10 +86,7 @@ import torch
 from lara_tpu_torch import _build
 from lara_tpu_torch.ops import gotoh_cuda, gotoh_plan
 from lara_tpu_torch.solver import device_solver
-
-#: host seconds of the last capture in this process (capture and
-#: instantiation, on the capturing thread)
-last_capture_seconds = 0.0
+from lara_tpu_torch.utils import timing
 
 
 class CudaGraph:
@@ -288,21 +286,18 @@ class _Entry:
         with _lock:
             if self.key in _warm:
                 return
-        with _build.recording():
+        with timing.phase("graph warm-up"), _build.recording():
             self._iteration(device_solver._Carry(*(t.clone()
                                                    for t in self.carry)))
         with _lock:
             _warm.add(self.key)
 
     def capture(self) -> None:
-        global last_capture_seconds
-        start = time.perf_counter()
         # the iteration ends in KI-tail, which evaluates the loop's exit
-        with _build.recording() as record:
+        with timing.phase("graph capture"), _build.recording() as record:
             self.graph.capture(self.step, self.carry.lane_active,
                                self.counters)
         self.per_body = record
-        last_capture_seconds = time.perf_counter() - start
 
     def carry_out(self) -> device_solver._Carry:
         out = device_solver._Carry(*(t.clone() for t in self.carry))
@@ -365,20 +360,21 @@ def run(model: device_solver.BatchModel, carry: device_solver._Carry,
     back."""
     if steps <= 0:
         return carry
-    entry = _acquire(key, model, carry)
-    ok = False
-    try:
-        with entry.graph.use():
-            entry.load(model, carry)
-            if entry.per_body is None:
-                entry.warm_up()
-                entry.capture()
-            entry.counters[0].fill_(steps)
-            entry.counters[1:].zero_()  # bodies run, KI-tail's ticket
-            entry.graph.replay()
-            _build.add_counted(entry.per_body, entry.counters[1])
-            out = entry.carry_out()
-        ok = True
-    finally:
-        _give_back(entry, ok)
-    return out
+    with timing.phase("dispatch (host)"):
+        entry = _acquire(key, model, carry)
+        ok = False
+        try:
+            with entry.graph.use():
+                entry.load(model, carry)
+                if entry.per_body is None:
+                    entry.warm_up()
+                    entry.capture()
+                entry.counters[0].fill_(steps)
+                entry.counters[1:].zero_()  # bodies run, KI-tail's ticket
+                entry.graph.replay()
+                _build.add_counted(entry.per_body, entry.counters[1])
+                out = entry.carry_out()
+            ok = True
+        finally:
+            _give_back(entry, ok)
+        return out

@@ -27,6 +27,9 @@ resolved by partner edge id, not dual id).
 
 from __future__ import annotations
 
+import ctypes
+import os
+import threading
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -36,6 +39,7 @@ from lara_tpu_torch.io.records import RnaRecord
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.scoring.ribosum import encode_rna5
 from lara_tpu_torch.types import contact_weight_to_int, seq_scale_factor
+from lara_tpu_torch.utils import log, timing
 
 
 @dataclass
@@ -119,38 +123,47 @@ def effective_balance(params: Parameters, identity: float) -> float:
 
 
 _NATIVE_BUILD = None
+_NATIVE_LOCK = threading.Lock()
 
 
 def _native_build():
-    """ctypes handle to the C++ model_build library (None if unavailable)."""
+    """ctypes handle to the C++ model_build library (None if unavailable),
+    loaded once per process, even when the ``-j`` pool's workers ask
+    first."""
     global _NATIVE_BUILD
     if _NATIVE_BUILD is None:
-        import os
-
-        if os.environ.get("LARA_NO_NATIVE_BUILD"):
-            _NATIVE_BUILD = False
-        else:
-            try:
-                import ctypes
-
-                from lara_tpu_torch.native import shared_library
-
-                lib = ctypes.CDLL(shared_library("model_build"))
-                i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-                f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-                u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-                lib.lara_build_model.restype = ctypes.c_int
-                lib.lara_build_model.argtypes = [
-                    ctypes.c_int, ctypes.c_int, u8p,
-                    i32p, f32p, ctypes.c_int,
-                    i32p, f32p, ctypes.c_int,
-                    ctypes.c_float,
-                    i32p, i32p, i32p, i32p, i32p, ctypes.c_int,
-                ]
-                _NATIVE_BUILD = lib
-            except Exception:
-                _NATIVE_BUILD = False
+        with _NATIVE_LOCK:
+            if _NATIVE_BUILD is None:
+                _NATIVE_BUILD = _load_native_build()
     return _NATIVE_BUILD or None
+
+
+def _load_native_build():
+    """The library's handle, or False where ``LARA_NO_NATIVE_BUILD`` is set
+    or it cannot be built or loaded; the reason for the NumPy build is
+    logged at verbosity 1."""
+    if os.environ.get("LARA_NO_NATIVE_BUILD"):
+        return False
+    try:
+        from lara_tpu_torch.native import shared_library
+
+        lib = ctypes.CDLL(shared_library("model_build"))
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.lara_build_model.restype = ctypes.c_int
+        lib.lara_build_model.argtypes = [
+            ctypes.c_int, ctypes.c_int, u8p,
+            i32p, f32p, ctypes.c_int,
+            i32p, f32p, ctypes.c_int,
+            ctypes.c_float,
+            i32p, i32p, i32p, i32p, i32p, ctypes.c_int,
+        ]
+    except Exception as exc:
+        log(1, "   * native model build unavailable, NumPy build instead: "
+               f"{exc!r}")
+        return False
+    return lib
 
 
 def build_pair_model(
@@ -163,7 +176,14 @@ def build_pair_model(
     """The ``Lagrange`` constructor body, given the edge-filter result:
     native C++ when the toolchain is available (it releases the GIL, so the
     driver's ``-j`` pool parallelises for real), NumPy otherwise.  Both are
-    bit-identical (``tests/test_interactions_native.py``)."""
+    bit-identical (``tests/test_interactions_native.py``).  Timed as the
+    phase "interaction build: pair" on the thread that runs it, and the
+    native call alone as "interaction build: native call"."""
+    with timing.phase("interaction build: pair"):
+        return _build_pair_model(rec_a, rec_b, params, active, opt_score)
+
+
+def _build_pair_model(rec_a, rec_b, params, active, opt_score) -> PairModel:
     seq_a = encode_rna5(rec_a.sequence).astype(np.int32)
     seq_b = encode_rna5(rec_b.sequence).astype(np.int32)
     la, lb = len(seq_a), len(seq_b)
@@ -193,14 +213,17 @@ def build_pair_model(
         out_s = np.empty(cap, np.int32)
         out_rev = np.empty(cap, np.int32)
         out_q = np.empty(cap, np.int32)
-        d = lib.lara_build_model(
-            la, lb, act.astype(np.uint8).reshape(-1),
-            np.ascontiguousarray(pa, np.int32).reshape(-1),
-            np.ascontiguousarray(wa, np.float32).reshape(-1), ka,
-            np.ascontiguousarray(pb, np.int32).reshape(-1),
-            np.ascontiguousarray(wb, np.float32).reshape(-1), kb,
-            np.float32(balance),
-            out_l, out_m, out_s, out_rev, out_q, cap) if cap else 0
+        d = 0
+        if cap:
+            args = (la, lb, act.astype(np.uint8).reshape(-1),
+                    np.ascontiguousarray(pa, np.int32).reshape(-1),
+                    np.ascontiguousarray(wa, np.float32).reshape(-1), ka,
+                    np.ascontiguousarray(pb, np.int32).reshape(-1),
+                    np.ascontiguousarray(wb, np.float32).reshape(-1), kb,
+                    np.float32(balance),
+                    out_l, out_m, out_s, out_rev, out_q, cap)
+            with timing.phase("interaction build: native call"):
+                d = lib.lara_build_model(*args)
         if d < 0:
             raise AssertionError("native model build failed (asymmetric table)")
         return PairModel(la, lb, seq_a, seq_b, act, seq_score,

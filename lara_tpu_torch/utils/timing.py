@@ -4,9 +4,13 @@
 The phase timers are the JAX package's (``lara_tpu/utils/timing.py``,
 the reference's phase accounting, ``subgradient_solver.hpp:199-203,335-351``):
 host-side buckets of wall time per phase, logged at verbosity >= 1.  Their
-accumulation takes a lock, so the driver's solver and download threads may
-time phases beside the main thread.  :func:`maybe_trace` is the counterpart
-of the JAX package's, which traces with ``jax.profiler``.
+accumulation takes a lock, so the driver's build workers and its solver and
+download threads may time phases beside the main thread.  While a
+``torch.profiler`` runs on the calling thread, a phase is also a profiler
+range ``phase:<name>``, so a trace names the host's phases on the same
+clock as the device's work; with none running, a phase enters no range.
+:func:`maybe_trace` is the counterpart of the JAX package's, which traces
+with ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from lara_tpu_torch.utils.logging import log
 _BUCKETS: "OrderedDict[str, float]" = OrderedDict()
 _COUNTS: "OrderedDict[str, int]" = OrderedDict()
 _LOCK = threading.Lock()
+_NO_RANGE = contextlib.nullcontext()
 
 
 def reset() -> None:
@@ -35,15 +40,20 @@ def reset() -> None:
 
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
-    """Accumulate wall time into the named bucket (thread-safe)."""
-    start = time.monotonic()
-    try:
-        yield
-    finally:
-        elapsed = time.monotonic() - start
-        with _LOCK:
-            _BUCKETS[name] = _BUCKETS.get(name, 0.0) + elapsed
-            _COUNTS[name] = _COUNTS.get(name, 0) + 1
+    """Accumulate wall time into the named bucket (thread-safe), inside a
+    profiler range ``phase:<name>`` while a profiler runs on this thread
+    (the check costs far less than a range entered with none running)."""
+    span = torch.profiler.record_function(f"phase:{name}") \
+        if torch.autograd._profiler_enabled() else _NO_RANGE
+    with span:
+        start = time.monotonic()
+        try:
+            yield
+        finally:
+            elapsed = time.monotonic() - start
+            with _LOCK:
+                _BUCKETS[name] = _BUCKETS.get(name, 0.0) + elapsed
+                _COUNTS[name] = _COUNTS.get(name, 0) + 1
 
 
 def snapshot() -> "OrderedDict[str, float]":

@@ -21,8 +21,8 @@ on the card, once to warm up and then ``--reps`` times, on:
 
 For each it reports the mean wall, the "subgradient solve (device)",
 "model packing (host)" and "hybrid device step" phases, the seconds of the
-run's last dispatch-graph capture (``dispatch_graph.last_capture_seconds``,
-0 where the run captured none), the batched hybrid turns, and the pairs'
+run's dispatch-graph captures (the phase "graph capture", 0 where the run
+captured none or the checkout has no such phase), the batched hybrid turns, and the pairs'
 mean and largest iterations.  Prints one JSON
 line per checkout, the card's name and power limit, and exits non-zero
 without a card.
@@ -55,7 +55,7 @@ def time_runs(dev, reps: int) -> dict:
     from lara_tpu_torch import _build, app
     from lara_tpu_torch.io.writers import write_ebpseq
     from lara_tpu_torch.params import Parameters
-    from lara_tpu_torch.solver import dispatch_graph, hybrid_driver
+    from lara_tpu_torch.solver import hybrid_driver
     from lara_tpu_torch.utils import timing
     from lara_tpu_torch.workloads import make_family, make_long_family
 
@@ -92,7 +92,6 @@ def time_runs(dev, reps: int) -> dict:
                                      0.0)
                 for k in range(runs + 1):
                     hybrid_driver.turns = 0
-                    dispatch_graph.last_capture_seconds = 0.0
                     start = time.perf_counter()
                     run = app.run(params, dev)
                     torch.cuda.synchronize()
@@ -103,7 +102,7 @@ def time_runs(dev, reps: int) -> dict:
                     for name in PHASES:
                         sums[name] += phases.get(name, 0.0)
                     sums["wall"] += wall
-                    sums["capture"] += dispatch_graph.last_capture_seconds
+                    sums["capture"] += phases.get("graph capture", 0.0)
                     sums["turns"] += hybrid_driver.turns
             finally:
                 app.load_input = real_load
