@@ -44,7 +44,7 @@ def shared_library(name: str, extra_sources: tuple = ()) -> str:
         os.makedirs(_LIB_DIR, exist_ok=True)
         tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [
-            "g++", "-std=c++17", "-O2", "-fPIC", "-shared",
+            "g++", "-std=c++17", "-O2", "-fPIC", "-shared", "-pthread",
             "-o", tmp, *sources,
         ]
         try:

@@ -546,19 +546,9 @@ def _filter_and_build(store, chunk, params: Parameters, la_max: int,
                                                           lb_max)
 
     with timing.phase("interaction build (host)"):
-        def build(k_pair):
-            k, (ia, ib) = k_pair
-            return interactions.build_pair_model(
-                store[ia], store[ib], params,
-                active_np[k, : las[k], : lbs[k]], int(opt_np[k]),
-            )
-
-        workers = min(_build_workers(params), max(1, b))
-        if workers > 1:
-            with ThreadPoolExecutor(max_workers=workers) as pool:
-                models = list(pool.map(build, enumerate(chunk)))
-        else:
-            models = [build(kp) for kp in enumerate(chunk)]
+        models = interactions.build_chunk(
+            [(store[ia], store[ib]) for ia, ib in chunk], params, active_np,
+            opt_np, _build_workers(params))
     return models, las
 
 

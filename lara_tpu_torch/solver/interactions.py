@@ -28,17 +28,21 @@ resolved by partner edge id, not dual id).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
-from dataclasses import dataclass
-from typing import List, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from lara_tpu_torch.io.records import RnaRecord
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.scoring.ribosum import encode_rna5
-from lara_tpu_torch.types import contact_weight_to_int, seq_scale_factor
+from lara_tpu_torch.types import av_seq_id, contact_weight_to_int, \
+    seq_scale_factor
 from lara_tpu_torch.utils import log, timing
 
 
@@ -46,18 +50,30 @@ from lara_tpu_torch.utils import log, timing
 class PairModel:
     la: int
     lb: int
-    seq_a: np.ndarray      # [la] int8 Rna5 ranks
+    seq_a: np.ndarray      # [la] int32 Rna5 ranks
     seq_b: np.ndarray
     active: np.ndarray     # [la, lb] bool (edge filter result)
-    seq_score: np.ndarray  # [la, lb] int32 scaled sequence profits
     dual_l: np.ndarray     # [D] int32 (edge-major: sorted by (l, m))
     dual_m: np.ndarray     # [D] int32
     sscore: np.ndarray     # [D] int32
     rev: np.ndarray        # [D] int32
     qperm: np.ndarray      # [D] int32: queue position -> edge-major index
-    #: float32 sequence-scale factor applied to seq_score (the driver
-    #: re-derives seq_score on device from seq_a/seq_b + this scale)
+    #: float32 sequence-scale factor applied to seq_score (the one-device
+    #: driver re-derives seq_score on device from seq_a/seq_b + this scale)
     scale: float = 0.0
+    #: [nk, nk] int32 substitution matrix that seq_score is gathered from
+    submat: Optional[np.ndarray] = field(default=None, repr=False)
+
+    @functools.cached_property
+    def seq_score(self) -> np.ndarray:
+        """[la, lb] int32 scaled sequence profits, gathered on first read:
+        ``trunc(float32(scale) * submat[seq_a, seq_b])`` (``getSeqScore``,
+        ``lagrange.hpp:223-226``).  The one-device packed upload never
+        reads it; the several-device and refill rows, the hybrid, the
+        native baseline and the linear library score do."""
+        mat = self.submat[self.seq_a[:, None], self.seq_b[None, :]]
+        return np.trunc(np.float32(self.scale)
+                        * mat.astype(np.float32)).astype(np.int32)
 
 
 _ADJ_CACHE: dict = {}
@@ -128,8 +144,7 @@ _NATIVE_LOCK = threading.Lock()
 
 def _native_build():
     """ctypes handle to the C++ model_build library (None if unavailable),
-    loaded once per process, even when the ``-j`` pool's workers ask
-    first."""
+    loaded once per process, even when several threads ask first."""
     global _NATIVE_BUILD
     if _NATIVE_BUILD is None:
         with _NATIVE_LOCK:
@@ -150,20 +165,154 @@ def _load_native_build():
         lib = ctypes.CDLL(shared_library("model_build"))
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-        lib.lara_build_model.restype = ctypes.c_int
-        lib.lara_build_model.argtypes = [
-            ctypes.c_int, ctypes.c_int, u8p,
-            i32p, f32p, ctypes.c_int,
-            i32p, f32p, ctypes.c_int,
-            ctypes.c_float,
-            i32p, i32p, i32p, i32p, i32p, ctypes.c_int,
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        lib.lara_build_chunk.restype = ctypes.c_int
+        lib.lara_build_chunk.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            i32p, i32p,
+            ptrs, ptrs, i32p,
+            ptrs, ptrs, i32p,
+            f32p, ctypes.c_int, i32p, f64p, ctypes.POINTER(ctypes.c_void_p),
         ]
+        lib.lara_chunk_take.restype = None
+        lib.lara_chunk_take.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int64]
     except Exception as exc:
         log(1, "   * native model build unavailable, NumPy build instead: "
                f"{exc!r}")
         return False
     return lib
+
+
+class _PairInputs(NamedTuple):
+    """The scalar, per-pair part of the ``Lagrange`` constructor: encoded
+    sequences, sequence scale, structural balance, padded adjacency."""
+
+    seq_a: np.ndarray
+    seq_b: np.ndarray
+    scale: float
+    balance: float
+    pa: np.ndarray
+    wa: np.ndarray
+    pb: np.ndarray
+    wb: np.ndarray
+
+
+def _pair_inputs(rec_a: RnaRecord, rec_b: RnaRecord, params: Parameters,
+                 opt_score: int) -> _PairInputs:
+    seq_a = encode_rna5(rec_a.sequence).astype(np.int32)
+    seq_b = encode_rna5(rec_b.sequence).astype(np.int32)
+    la, lb = len(seq_a), len(seq_b)
+    identity = av_seq_id(opt_score, la, lb)
+    scale = seq_scale_factor(params.sequence_scale, identity)
+    pa, wa = adjacency_arrays(rec_a, la, params.precise_bpp)
+    pb, wb = adjacency_arrays(rec_b, lb, params.precise_bpp)
+    return _PairInputs(seq_a, seq_b, float(scale),
+                       effective_balance(params, identity), pa, wa, pb, wb)
+
+
+def build_chunk(pairs: Sequence[Tuple[RnaRecord, RnaRecord]],
+                params: Parameters, active: np.ndarray,
+                opt_scores: Sequence[int], workers: int) -> List[PairModel]:
+    """The ``Lagrange`` constructor body for every pair of a chunk, given
+    the edge filter's ``active`` grid ``[B, >= la, >= lb]`` (pair k's
+    cells at ``active[k, :la, :lb]``, read in place) and optimal scores.
+
+    Native: one call into the model_build library builds every pair on
+    ``min(workers, B)`` C++ threads with the interpreter's lock released;
+    Python keeps the scalar work per pair and the models' views of the
+    call's flat outputs.  The native library's per-pair seconds are booked
+    as "interaction build: native call", and with the Python work around
+    the call as "interaction build: pair", one count a pair each.
+    NumPy (no toolchain, or ``LARA_NO_NATIVE_BUILD``): each pair built
+    by the mirror on a pool of ``workers`` threads, each under the phase
+    "interaction build: pair".  Both give the same models bit for bit
+    (``tests/test_torch_model_build.py``)."""
+    b = len(pairs)
+    active = np.asarray(active, dtype=bool)
+    if active.ndim != 3 or active.shape[0] != b:
+        raise ValueError(f"active grid {active.shape} for {b} pairs")
+    submat = np.asarray(params.score_matrix, dtype=np.int32)
+    lib = _native_build()
+    if lib is None:
+        return _build_chunk_numpy(pairs, params, active, opt_scores,
+                                  workers, submat)
+    if b == 0:
+        return []
+    start = time.perf_counter()
+    inputs = [_pair_inputs(rec_a, rec_b, params, int(opt))
+              for (rec_a, rec_b), opt in zip(pairs, opt_scores)]
+    la = np.array([len(x.seq_a) for x in inputs], np.int32)
+    lb = np.array([len(x.seq_b) for x in inputs], np.int32)
+    if la.max() > active.shape[1] or lb.max() > active.shape[2]:
+        raise ValueError(f"active grid {active.shape} smaller than a pair "
+                         f"({la.max()} x {lb.max()})")
+    if active.strides[2] != 1:
+        active = np.ascontiguousarray(active)
+
+    def tables(name, dtype):
+        keep = [np.ascontiguousarray(getattr(x, name), dtype) for x in inputs]
+        return keep, (ctypes.c_void_p * b)(*(t.ctypes.data for t in keep))
+
+    pa, pa_ptr = tables("pa", np.int32)
+    wa, wa_ptr = tables("wa", np.float32)
+    pb, pb_ptr = tables("pb", np.int32)
+    wb, wb_ptr = tables("wb", np.float32)
+    ka = np.array([t.shape[1] for t in pa], np.int32)
+    kb = np.array([t.shape[1] for t in pb], np.int32)
+    balance = np.array([x.balance for x in inputs], np.float32)
+    counts = np.zeros(b, np.int32)
+    seconds = np.zeros(b, np.float64)
+    handle = ctypes.c_void_p()
+    call = time.perf_counter()
+    rc = lib.lara_build_chunk(
+        b, active.ctypes.data, active.strides[0], active.strides[1], la, lb,
+        pa_ptr, wa_ptr, ka, pb_ptr, wb_ptr, kb, balance, int(workers),
+        counts, seconds, ctypes.byref(handle))
+    call = time.perf_counter() - call
+    if rc == -2:
+        raise AssertionError("native model build failed (asymmetric table)")
+    if rc:
+        raise MemoryError(f"native model build failed ({rc})")
+    total = int(counts.sum())
+    try:
+        flat = np.empty((5, total), np.int32)
+    except MemoryError:
+        lib.lara_chunk_take(handle, None, 0)
+        raise
+    lib.lara_chunk_take(handle, flat.ctypes.data, total)
+    offsets = np.zeros(b + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    models = []
+    for k, x in enumerate(inputs):
+        lo, hi = offsets[k], offsets[k + 1]
+        dual_l, dual_m, sscore, rev, qperm = flat[:, lo:hi]
+        models.append(PairModel(int(la[k]), int(lb[k]), x.seq_a, x.seq_b,
+                                active[k, : la[k], : lb[k]], dual_l, dual_m,
+                                sscore, rev, qperm, scale=x.scale,
+                                submat=submat))
+    native = float(seconds.sum())
+    timing.add("interaction build: native call", native, b)
+    timing.add("interaction build: pair",
+               native + (time.perf_counter() - start - call), b)
+    return models
+
+
+def _build_chunk_numpy(pairs, params, active, opt_scores, workers, submat):
+    def build(k):
+        rec_a, rec_b = pairs[k]
+        with timing.phase("interaction build: pair"):
+            x = _pair_inputs(rec_a, rec_b, params, int(opt_scores[k]))
+            act = np.ascontiguousarray(
+                active[k, : len(x.seq_a), : len(x.seq_b)])
+            return _build_pair_model_numpy(x, act, submat)
+
+    workers = min(int(workers), max(1, len(pairs)))
+    if workers > 1:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(build, range(len(pairs))))
+    return [build(k) for k in range(len(pairs))]
 
 
 def build_pair_model(
@@ -173,73 +322,17 @@ def build_pair_model(
     active: np.ndarray,
     opt_score: int,
 ) -> PairModel:
-    """The ``Lagrange`` constructor body, given the edge-filter result:
-    native C++ when the toolchain is available (it releases the GIL, so the
-    driver's ``-j`` pool parallelises for real), NumPy otherwise.  Both are
-    bit-identical (``tests/test_interactions_native.py``).  Timed as the
-    phase "interaction build: pair" on the thread that runs it, and the
-    native call alone as "interaction build: native call"."""
-    with timing.phase("interaction build: pair"):
-        return _build_pair_model(rec_a, rec_b, params, active, opt_score)
+    """One pair's model, given its ``[la, lb]`` edge-filter result: the
+    chunk build (:func:`build_chunk`) of one pair on the calling thread."""
+    return build_chunk([(rec_a, rec_b)], params,
+                       np.asarray(active, dtype=bool)[None], [opt_score],
+                       1)[0]
 
 
-def _build_pair_model(rec_a, rec_b, params, active, opt_score) -> PairModel:
-    seq_a = encode_rna5(rec_a.sequence).astype(np.int32)
-    seq_b = encode_rna5(rec_b.sequence).astype(np.int32)
-    la, lb = len(seq_a), len(seq_b)
-
-    from lara_tpu_torch.types import av_seq_id
-
-    identity = av_seq_id(opt_score, la, lb)
-    scale = seq_scale_factor(params.sequence_scale, identity)
-    balance = effective_balance(params, identity)
-    mat = np.asarray(params.score_matrix, dtype=np.int32)[seq_a[:, None], seq_b[None, :]]
-    seq_score = np.trunc(np.float32(scale) * mat.astype(np.float32)).astype(np.int32)
-
-    pa, wa = adjacency_arrays(rec_a, la, params.precise_bpp)
-    pb, wb = adjacency_arrays(rec_b, lb, params.precise_bpp)
-    ka, kb = pa.shape[1], pb.shape[1]
-
-    act = np.ascontiguousarray(active, dtype=bool)
-    lib = _native_build()
-    if lib is not None:
-        # exact candidate upper bound: sum over active edges of deg_a * deg_b
-        dega = (pa >= 0).sum(axis=1).astype(np.int64)
-        degb = (pb >= 0).sum(axis=1).astype(np.int64)
-        a_ids, b_ids = np.nonzero(act)
-        cap = int((dega[a_ids] * degb[b_ids]).sum()) if len(a_ids) else 0
-        out_l = np.empty(cap, np.int32)
-        out_m = np.empty(cap, np.int32)
-        out_s = np.empty(cap, np.int32)
-        out_rev = np.empty(cap, np.int32)
-        out_q = np.empty(cap, np.int32)
-        d = 0
-        if cap:
-            args = (la, lb, act.astype(np.uint8).reshape(-1),
-                    np.ascontiguousarray(pa, np.int32).reshape(-1),
-                    np.ascontiguousarray(wa, np.float32).reshape(-1), ka,
-                    np.ascontiguousarray(pb, np.int32).reshape(-1),
-                    np.ascontiguousarray(wb, np.float32).reshape(-1), kb,
-                    np.float32(balance),
-                    out_l, out_m, out_s, out_rev, out_q, cap)
-            with timing.phase("interaction build: native call"):
-                d = lib.lara_build_model(*args)
-        if d < 0:
-            raise AssertionError("native model build failed (asymmetric table)")
-        return PairModel(la, lb, seq_a, seq_b, act, seq_score,
-                         out_l[:d].copy(), out_m[:d].copy(), out_s[:d].copy(),
-                         out_rev[:d].copy(), out_q[:d].copy(),
-                         scale=float(scale))
-
-    return _build_pair_model_numpy(rec_a, rec_b, params, act, seq_score,
-                                   seq_a, seq_b, pa, wa, pb, wb, scale,
-                                   balance)
-
-
-def _build_pair_model_numpy(rec_a, rec_b, params, act, seq_score,
-                            seq_a, seq_b, pa, wa, pb, wb,
-                            scale=0.0, balance=None) -> PairModel:
+def _build_pair_model_numpy(x: _PairInputs, act: np.ndarray,
+                            submat: np.ndarray) -> PairModel:
     """Vectorized NumPy mirror of the native model_build library."""
+    seq_a, seq_b, pa, wa, pb, wb = x.seq_a, x.seq_b, x.pa, x.wa, x.pb, x.wb
     la, lb = len(seq_a), len(seq_b)
     ka, kb = pa.shape[1], pb.shape[1]
 
@@ -248,9 +341,9 @@ def _build_pair_model_numpy(rec_a, rec_b, params, act, seq_score,
     e_count = len(a_ids)
     if e_count == 0:
         empty = np.zeros(0, dtype=np.int32)
-        return PairModel(la, lb, seq_a, seq_b, act, seq_score,
+        return PairModel(la, lb, seq_a, seq_b, act,
                          empty, empty, empty, empty, empty,
-                         scale=float(scale))
+                         scale=x.scale, submat=submat)
 
     # [E, KA, KB] candidate partner coordinates
     a2 = pa[a_ids][:, :, None]                      # [E, KA, 1]
@@ -273,11 +366,9 @@ def _build_pair_model_numpy(rec_a, rec_b, params, act, seq_score,
     m_edge = (a2c * lb + b2c).reshape(-1)[sel].astype(np.int32)
 
     # structScore = trunc(balance * (head + tail) / 2 * 8192) in float32
-    if balance is None:
-        balance = params.balance
     ssum = (w_head + w_tail).reshape(-1)[sel].astype(np.float32)
     sscore = np.trunc(
-        np.float32(balance) * ssum / np.float32(2.0) * np.float32(8192.0)
+        np.float32(x.balance) * ssum / np.float32(2.0) * np.float32(8192.0)
     ).astype(np.int32)
 
     # enforce the edge-major invariant: sorted by (l, m) so each edge's
@@ -298,6 +389,6 @@ def _build_pair_model_numpy(rec_a, rec_b, params, act, seq_score,
     # static matching-queue order as a permutation (see module docstring)
     qperm = np.lexsort((m_edge, l_edge, -2 * sscore.astype(np.int64))).astype(np.int32)
 
-    return PairModel(la, lb, seq_a, seq_b, act, seq_score,
+    return PairModel(la, lb, seq_a, seq_b, act,
                      l_edge, m_edge, sscore, rev, qperm,
-                     scale=float(scale))
+                     scale=x.scale, submat=submat)

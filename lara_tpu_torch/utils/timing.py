@@ -50,10 +50,16 @@ def phase(name: str) -> Iterator[None]:
         try:
             yield
         finally:
-            elapsed = time.monotonic() - start
-            with _LOCK:
-                _BUCKETS[name] = _BUCKETS.get(name, 0.0) + elapsed
-                _COUNTS[name] = _COUNTS.get(name, 0) + 1
+            add(name, time.monotonic() - start)
+
+
+def add(name: str, seconds: float, count: int = 1) -> None:
+    """Add ``seconds`` and ``count`` to the named bucket (thread-safe), as
+    ``count`` phases of that many seconds in all would, with no range: for
+    time measured elsewhere, such as inside a native library."""
+    with _LOCK:
+        _BUCKETS[name] = _BUCKETS.get(name, 0.0) + seconds
+        _COUNTS[name] = _COUNTS.get(name, 0) + count
 
 
 def snapshot() -> "OrderedDict[str, float]":

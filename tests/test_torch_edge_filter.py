@@ -259,4 +259,7 @@ def test_filter_and_build_calls_the_wrapper(kind, tmp_path, monkeypatch):
             np.testing.assert_array_equal(
                 getattr(got_model, field.name),
                 getattr(want_model, field.name), field.name)
+        # gathered on first read, so not among the dataclass's fields
+        np.testing.assert_array_equal(got_model.seq_score,
+                                      want_model.seq_score, "seq_score")
     assert any(m.active.any() for m in models)

@@ -101,15 +101,24 @@ def family_run(tmp_path_factory):
 
 
 def test_pair_build_is_a_span_on_the_pool_threads(family_run):
+    """The chunk's native build books each pair's seconds inside the
+    library ("native call") and with its share of the Python work around
+    the call ("pair"), one count a pair each, after the call; the library's
+    threads, at most ``-j`` of them, run under "interaction build
+    (host)"."""
     run, seen, counts, seconds = family_run
     pairs = len(run.results)
     assert pairs == 10
-    builds = [t for name, t in seen if name == "interaction build: pair"]
-    assert len(builds) == counts["interaction build: pair"] == pairs
-    assert all(t is not threading.main_thread() for t in builds)
-    # at most the pool's two workers build at once
+    assert counts["interaction build: pair"] == pairs
+    assert counts["interaction build: native call"] == pairs
+    assert seconds["interaction build: native call"] \
+        <= seconds["interaction build: pair"]
+    # at most -j 2 threads build at once
     assert seconds["interaction build: pair"] \
         <= 2 * seconds["interaction build (host)"]
+    hosts = [t for name, t in seen if name == "interaction build (host)"]
+    assert hosts and all(t is threading.main_thread() for t in hosts)
+    assert not [t for name, t in seen if name == "interaction build: pair"]
 
 
 @pytest.mark.parametrize("name", ["interaction build: native call",
