@@ -1,6 +1,9 @@
 """The output check that decides ``correct``: what the window's family jobs
-produced, against the plain reference (:mod:`gpubench.reference`) run again
-from the same input files.
+produced, against the plain reference run again from the same input files.
+The reference is the package that the configuration's ``reference`` names
+(``harness.reference_package``), passed here by its dotted name; its
+``driver``, ``params``, ``records``, ``writer`` and ``control`` modules are
+read from it.
 
 Every completed job is checked for completeness: its results and its
 library each hold every pair of the family exactly once.  A sample of the
@@ -18,6 +21,7 @@ answers are judged by the same comparison.
 
 from __future__ import annotations
 
+import importlib
 import multiprocessing
 import os
 import re
@@ -84,32 +88,36 @@ def sample(jobs: Sequence[Job], count: int, seed: int
 
 # -- the reference's side, in worker processes ---------------------------
 
-_RECORDS: Dict[str, list] = {}
+def _module(reference: str, name: str):
+    """The module ``name`` of the reference package ``reference``."""
+    return importlib.import_module(f"{reference}.{name}")
 
 
-def _records(path: str):
-    from gpubench.reference.records import read_ebpseq
+_RECORDS: Dict[Tuple[str, str], list] = {}
 
-    if path not in _RECORDS:
+
+def _records(reference: str, path: str):
+    if (reference, path) not in _RECORDS:
         _RECORDS.clear()
-        _RECORDS[path] = read_ebpseq(path)
-    return _RECORDS[path]
+        _RECORDS[reference, path] = _module(reference,
+                                            "records").read_ebpseq(path)
+    return _RECORDS[reference, path]
 
 
 def reference_answer(task) -> Answer:
-    """Solve one pair ``(in_file, (i, j), params, rounding)`` with the
-    reference: the pair oriented as the program orients it, longer
-    sequence first (``subgradient_solver.hpp:112-120``)."""
-    from gpubench.reference import control, driver
-    from gpubench.reference.params import Parameters
-
-    path, (i, j), params, rounding = task
-    store = _records(path)
+    """Solve one pair ``(reference, in_file, (i, j), params, rounding)``
+    with the reference package ``reference``: the pair oriented as the
+    program orients it, longer sequence first
+    (``subgradient_solver.hpp:112-120``)."""
+    reference, path, (i, j), params, rounding = task
+    store = _records(reference, path)
     a, b = (i, j) if len(store[i].sequence) >= len(store[j].sequence) \
         else (j, i)
-    rnd = control.to_bfloat16 if rounding == "bfloat16" else np.float32
-    result = driver.solve_pair(store[a], store[b], Parameters(**params),
-                               (a, b), rounding=rnd)
+    rnd = _module(reference, "control").to_bfloat16 \
+        if rounding == "bfloat16" else np.float32
+    result = _module(reference, "driver").solve_pair(
+        store[a], store[b], _module(reference, "params").Parameters(**params),
+        (a, b), rounding=rnd)
     return answer_of(result)
 
 
@@ -137,13 +145,15 @@ def default_workers() -> int:
 
 
 def check(jobs: Sequence[Job], failed: int, config: dict, count: int,
-          seed: int, workers: int, control: bool = False) -> dict:
+          seed: int, workers: int, reference: str,
+          control: bool = False) -> dict:
     """The numbers compared, each ``{"value", "limit"}``, and
-    ``pairs_compared``.  With ``control``, also ``control_pairs_differing``:
-    the sampled pairs on which the control's answers, in the program's
-    place, differ from the reference's."""
-    from gpubench.reference import writer
-    from gpubench.reference.records import read_ebpseq
+    ``pairs_compared``, judged by the reference package ``reference``.
+    With ``control``, also ``control_pairs_differing``: the sampled pairs
+    on which the control's answers, in the program's place, differ from
+    the reference's."""
+    writer = _module(reference, "writer")
+    read_ebpseq = _module(reference, "records").read_ebpseq
 
     missing = 0
     libraries = []
@@ -153,9 +163,10 @@ def check(jobs: Sequence[Job], failed: int, config: dict, count: int,
         missing += unaccounted(job, libraries[-1])
     picked = sample(jobs, count, seed)
     params = reference_params(config)
-    tasks = [(jobs[j].in_file, pair, params, None) for j, pair in picked]
+    tasks = [(reference, jobs[j].in_file, pair, params, None)
+             for j, pair in picked]
     if control:
-        tasks += [(jobs[j].in_file, pair, params, "bfloat16")
+        tasks += [(reference, jobs[j].in_file, pair, params, "bfloat16")
                   for j, pair in picked]
     answers = solve(tasks, workers)
     truth = answers[:len(picked)]

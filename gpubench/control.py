@@ -5,9 +5,10 @@
 runs the cell's traffic for a short window, then judges the window's
 sampled pairs twice against the reference: the program's answers (the
 lower reading, 0 on a sound run) and the control's, the reference with its
-float32 subgradient step in bfloat16 put in the program's place
-(:mod:`gpubench.reference.control`; the upper reading).  It prints one
-JSON line of both.  The benchmark's own runs never run the control.
+float32 subgradient step in bfloat16 put in the program's place (the
+``control`` module of the cell's reference package; the upper reading).
+It prints one JSON line of both.  The benchmark's own runs never run the
+control.
 """
 
 import time

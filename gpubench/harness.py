@@ -3,11 +3,13 @@ jobs through ``lara_tpu_torch.app.run``, the output check, and the
 result's line.
 
 Everything that belongs to a cell is found by name: the cell in
-``BENCHMARK.json``, its configuration in the file that entry names, its
-traffic mix in ``gpubench/traffic/<traffic>.json``, and each per-layer
-metric's reader in ``gpubench/metrics/<metric>.py``.  Adding a
-configuration, a traffic mix or a metric adds files and entries; no file
-of the harness changes.
+``BENCHMARK.json``, its configuration in the file that entry names, the
+reference that judges it in the package the configuration's ``reference``
+names, its pool's generator by the configuration's ``generator.kind``
+(:func:`gpubench.traffic.generate.make_pool`), its traffic mix in
+``gpubench/traffic/<traffic>.json``, and each per-layer metric's reader in
+``gpubench/metrics/<metric>.py``.  Adding a configuration, a traffic mix
+or a metric adds files and entries; no file of the harness changes.
 
 The traffic is a closed loop with one client.  Set-up makes the traffic's
 pool of records from its ``pool_seed`` (:mod:`gpubench.traffic.generate`),
@@ -34,7 +36,7 @@ import sys
 import tempfile
 import time
 import traceback
-from pathlib import Path
+from pathlib import Path, PurePosixPath
 from typing import List, NamedTuple, Optional
 
 HERE = Path(__file__).resolve().parent
@@ -45,6 +47,11 @@ BANNED = ("jax", "jaxlib", "flax", "lara_tpu")
 #: three, at ~35 s (~230 family jobs, each a new graph capture), while
 #: windows of 25 and 40 s, and every untraced run, ran through
 TRACED_SECONDS = 20.0
+#: the end-to-end metric that needs CUDA events around the untraced
+#: window's dispatches (:class:`gpubench.trace.ReplayClock`)
+CARD_METRIC = "solve_card_us_per_alignment"
+#: the modules a configuration's reference package has to hold
+REFERENCE_MODULES = ("driver", "params", "records", "writer", "control")
 
 
 class Cell(NamedTuple):
@@ -54,6 +61,7 @@ class Cell(NamedTuple):
     traffic: dict
     end_to_end: list   # the BENCHMARK.json entries this cell reports
     per_layer: list
+    reference: str     # the dotted package of the configuration's reference
 
 
 class JobStat(NamedTuple):
@@ -70,6 +78,31 @@ class Window(NamedTuple):
     jobs: List[JobStat]
     iterations: int    # settled batch iterations (K3 launches)
     trace: object      # gpubench.trace.Summary
+
+
+def reference_package(path: str) -> str:
+    """The package that a configuration's ``reference`` names, as a dotted
+    name: ``"gpubench/reference"`` is ``gpubench.reference``.  A path
+    outside ``gpubench/``, or a package that lacks one of
+    :data:`REFERENCE_MODULES`, is refused."""
+    parts = PurePosixPath(path).parts
+    if len(parts) < 2 or parts[0] != HERE.name \
+            or not all(p.isidentifier() for p in parts):
+        raise ValueError(f"reference {path!r} is not a package under "
+                         f"{HERE.name}/")
+    package = ".".join(parts)
+    try:
+        spec = importlib.util.find_spec(package)
+    except ModuleNotFoundError:
+        spec = None
+    if spec is None or spec.submodule_search_locations is None:
+        raise ValueError(f"reference {path!r}: no package {package}")
+    missing = [m for m in REFERENCE_MODULES
+               if importlib.util.find_spec(f"{package}.{m}") is None]
+    if missing:
+        raise ValueError(f"reference {path!r}: package {package} lacks "
+                         f"{', '.join(missing)}")
+    return package
 
 
 def load_cell(workload: str, root: Path = HERE.parent) -> Cell:
@@ -93,7 +126,8 @@ def load_cell(workload: str, root: Path = HERE.parent) -> Cell:
                                                         [workload])]
 
     return Cell(workload, int(cell["chips"]), config, traffic,
-                mine(bench["end_to_end"]), mine(bench["per_layer"]))
+                mine(bench["end_to_end"]), mine(bench["per_layer"]),
+                reference_package(config["reference"]))
 
 
 def read_metric(name: str, window: Window) -> Optional[float]:
@@ -162,15 +196,19 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         _build.settle()
         _build.reset_launches()
 
-        tracer = None
+        tracer = clock = None
         if trace:
             from gpubench.trace import Tracer
 
             tracer = Tracer(device)
+        elif cuda and any(m["name"] == CARD_METRIC for m in cell.end_to_end):
+            from gpubench.trace import ReplayClock
+
+            clock = ReplayClock(device)
         jobs, stats = [], []
         failed, end = 0, None
         gc.freeze()
-        with tracer if tracer is not None else contextlib.nullcontext():
+        with tracer or clock or contextlib.nullcontext():
             setup_s = time.monotonic() - t0
             usage = resource.getrusage(resource.RUSAGE_SELF)
             start = time.perf_counter()
@@ -198,6 +236,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
             peak = torch.cuda.max_memory_allocated(device)
         _build.settle()
         iterations = _build.launches["matching_rounds"]
+        card_s = clock.seconds() if clock is not None else None
         summary = tracer.summary() if tracer is not None else None
 
         found = banned_modules()
@@ -209,7 +248,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         checked = time.monotonic()
         numbers = check.check(jobs, failed, cell.config,
                               int(traffic["check_pairs"]), s_sample, workers,
-                              control)
+                              cell.reference, control)
         check_s = time.monotonic() - checked
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -221,12 +260,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
             value = read_metric(m["name"], window)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    else:
+    pairs = sum(s.pairs for s in stats)
+    rate = pairs / wall_s if stats else 0.0
+    tail = p95([s.wall_s * 1e3 for s in stats])
+    if not trace:
         e2e = {
-            "alignments_per_s": sum(s.pairs for s in stats) / wall_s
-            if stats else 0.0,
-            "family_p95_ms": p95([s.wall_s * 1e3 for s in stats]),
+            "alignments_per_s": rate,
+            "family_p95_ms": tail,
             "setup_s": setup_s,
+            CARD_METRIC: 1e6 * card_s / pairs
+            if card_s and pairs else None,
         }
         for m in cell.end_to_end:
             if e2e.get(m["name"]) is not None:
@@ -263,6 +306,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
             phases[name] = phases.get(name, 0.0) + sec
     out["window"] = {
         "jobs": len(stats),
+        "alignments_per_s": rate,
+        "family_p95_ms": tail,
         "job_ms": [1e3 * walls[k * (len(walls) - 1) // 4] for k in range(5)]
         if walls else [],
         "program_phases_s": phases,
@@ -323,9 +368,21 @@ def main(argv, t0: float) -> int:
     os.environ.pop("LARA_PLATFORM", None)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    out = run(cell, args.seed, args.seconds, bool(args.trace), device, t0)
+    try:
+        out = run(cell, args.seed, args.seconds, bool(args.trace), device,
+                  t0)
+    finally:
+        _stop_resource_tracker()
     report(out)
     return 0
+
+
+def _stop_resource_tracker() -> None:
+    """Stop, and wait for, the process that ``multiprocessing`` starts
+    beside the spawned pools, so that none outlives the run."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
 
 
 def rehearse(workload: str, seed: int, seconds: float,
@@ -349,6 +406,7 @@ def rehearse(workload: str, seed: int, seconds: float,
         else:
             cfg[key] = value
     cell = cell._replace(config=cfg,
-                         traffic={**cell.traffic, **(traffic or {})})
+                         traffic={**cell.traffic, **(traffic or {})},
+                         reference=reference_package(cfg["reference"]))
     return run(cell, seed, seconds, False, torch.device("cpu"),
                time.monotonic(), workers)

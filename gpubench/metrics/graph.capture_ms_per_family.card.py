@@ -1,0 +1,10 @@
+"""graph.capture_ms_per_family.card: the reading of
+``graph.capture_ms_per_family.py`` in the cells whose end-to-end metric
+besides set-up is the card's, ``solve_card_us_per_alignment``, because the
+host's pace spreads ``alignments_per_s`` there too widely for its bound."""
+
+from gpubench.harness import read_metric
+
+
+def read(window):
+    return read_metric("graph.capture_ms_per_family", window)

@@ -32,10 +32,12 @@ def test_a_short_run_prints_the_result_line(card, trace):
     assert list(out)[-1] == "checks"
     if trace == "1":
         assert 0 < out["device"]["busy_s"] <= out["device"]["window_s"]
-        assert "device.idle_share" in out["metrics"]
+        assert "device.idle_share.card" in out["metrics"]
+        assert "entry.alignments_per_s" in out["metrics"]
     else:
-        assert set(out["metrics"]) == {"alignments_per_s", "family_p95_ms",
+        assert set(out["metrics"]) == {"solve_card_us_per_alignment",
                                        "setup_s"}
+        assert out["metrics"]["solve_card_us_per_alignment"]["value"] > 0
 
 
 @pytest.mark.cuda

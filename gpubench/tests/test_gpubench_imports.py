@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[2]
 BANNED = {"jax", "jaxlib", "flax", "lara_tpu"}
 
@@ -50,13 +52,30 @@ def test_a_rehearsal_loads_no_jax_and_reads_no_jax_benchmark():
                 if os.path.abspath(p).startswith(jax_bench)]
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    code = ("import json, sys\n"
-            "import gpubench.reference.driver, gpubench.reference.control\n"
-            "import gpubench.reference.writer, gpubench.check\n"
-            "import gpubench.traffic.generate\n"
+def _references():
+    """Every ``reference`` that BENCHMARK.json's configurations name."""
+    with open(REPO / "BENCHMARK.json") as handle:
+        configs = json.load(handle)["configs"]
+    names = set()
+    for config in configs:
+        with open(REPO / config["file"]) as handle:
+            names.add(json.load(handle)["reference"])
+    return sorted(names)
+
+
+@pytest.mark.parametrize("reference", _references())
+def test_the_reference_loads_nothing_of_the_program(reference):
+    from gpubench import harness
+
+    package = harness.reference_package(reference)
+    code = ("import importlib, json, sys\n"
+            f"for name in {harness.REFERENCE_MODULES!r}:\n"
+            f"    importlib.import_module('{package}.' + name)\n"
+            "import gpubench.check, gpubench.traffic.generate\n"
             "print(json.dumps(sorted(sys.modules)))\n")
-    tops = {m.split(".", 1)[0] for m in _run(code)}
+    modules = _run(code)
+    assert f"{package}.driver" in modules
+    tops = {m.split(".", 1)[0] for m in modules}
     assert not tops & (BANNED | {"lara_tpu_torch", "torch"})
 
 

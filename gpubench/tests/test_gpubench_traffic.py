@@ -67,6 +67,34 @@ def test_same_seed_same_jobs(name):
     assert [next(other) for _ in range(5)] != firsts[0]
 
 
+#: sha256 of each cell's pool (names, sequences, edges with their floats'
+#: hex), taken before a generator kind could come from a file of its own
+POOL_DIGESTS = {
+    ("trna72", "families15"):
+        "f2371edc0ce345eef9be6e2ba1446fc12c6763cbde0f8cefb55380ac01807404",
+    ("trna72", "families64"):
+        "1c76f2bae5e9cc9f5934df5c581f10d3de8970ceede43b420018e80cbf600746",
+    ("ssu16s1530", "families8"):
+        "03db71d41b466914281f5558069f343de921a008fa1c9f91790ffcb21a9d574b",
+    ("ssu16s1530", "pair"):
+        "f2a669c58410d3fe14887f9be44f687fa5d55c2aa3bb77b42cb7570b1bd9bbbd",
+}
+
+
+@pytest.mark.parametrize("config, traffic", sorted(POOL_DIGESTS))
+def test_the_pools_are_as_they_were(config, traffic):
+    with open(REPO / "gpubench" / "configs" / f"{config}.json") as handle:
+        cfg = json.load(handle)
+    with open(REPO / "gpubench" / "traffic" / f"{traffic}.json") as handle:
+        mix = json.load(handle)
+    pool = generate.make_pool(cfg, mix, int(mix["pool_seed"]), workers=4)
+    key = [[r.name, r.sequence, [[int(i), int(j), float(p).hex()]
+                                 for i, j, p in r.bpp_edges]] for r in pool]
+    assert len(pool) == mix["pool_size"]
+    assert hashlib.sha256(json.dumps(key).encode()).hexdigest() \
+        == POOL_DIGESTS[config, traffic]
+
+
 def test_ebpseq_equals_the_port_writer(tmp_path):
     from lara_tpu_torch.io.writers import write_ebpseq
 

@@ -2,7 +2,8 @@
 around calls into the program's layers, a ``torch.profiler`` trace of the
 window, and their reduction to what the per-layer readers read.
 
-Wrappers, installed for the traced window only and removed after it:
+Wrappers, installed for the traced window only and removed after it
+(:class:`ReplayClock` installs the replay's alone in an untraced window):
 
 * ``timing.phase`` (the program's phase buckets) also opens a profiler
   range ``phase:<name>``, so that the device's idle time can be named by
@@ -159,16 +160,8 @@ class Tracer:
             return wrapped
 
         def replay(original):
-            def wrapped(graph):
-                stream = torch.cuda.current_stream(tracer.device)
-                begin = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                tracer._launched()
-                begin.record(stream)
-                original(graph)
-                end.record(stream)
-                tracer.replays.append((begin, end))
-            return wrapped
+            return _timed(original, tracer.device, tracer.replays,
+                          tracer._launched)
 
         def run_solve(original):
             def wrapped(prep, params):
@@ -322,6 +315,53 @@ class Tracer:
             ops += work.ops
             nbytes += work.bytes
         return Seen(calls, seconds, roofline.Work(ops, nbytes))
+
+
+class ReplayClock:
+    """The untraced run's one wrapper: CUDA events before and after each
+    launch of a dispatch's graph (``dispatch_graph.CudaGraph.replay``), as
+    in :class:`Tracer`, with no profiler.  ``seconds()``, after the
+    device has synchronised, is the card's time in the window's
+    dispatches."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.replays = []
+        self._original = None
+
+    def __enter__(self):
+        from lara_tpu_torch.solver import dispatch_graph
+
+        self._original = dispatch_graph.CudaGraph.replay
+        dispatch_graph.CudaGraph.replay = _timed(self._original, self.device,
+                                                 self.replays)
+        return self
+
+    def __exit__(self, *exc):
+        from lara_tpu_torch.solver import dispatch_graph
+
+        dispatch_graph.CudaGraph.replay = self._original
+        return False
+
+    def seconds(self) -> float:
+        return sum(b.elapsed_time(e) for b, e in self.replays) / 1e3
+
+
+def _timed(replay, device: torch.device, replays: list,
+           launched=lambda: None):
+    """``replay`` with a CUDA event before and after each launch on the
+    launching stream; each pair is appended to ``replays``, and
+    ``launched`` is called before the launch."""
+    def wrapped(graph):
+        stream = torch.cuda.current_stream(device)
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        launched()
+        begin.record(stream)
+        replay(graph)
+        end.record(stream)
+        replays.append((begin, end))
+    return wrapped
 
 
 def _merge(intervals, t0: int, t1: int):

@@ -2,7 +2,10 @@
 from the run's seed in set-up, and the closed loop's family jobs drawn from
 it.  A traffic mix is a data file beside this module (``<name>.json``) and a
 configuration a data file under ``gpubench/configs/``; this module reads
-both and holds no parameter of its own.
+both and holds no parameter of its own.  A configuration's
+``generator.kind`` names the maker of its pool: ``trna_family`` and
+``long_family`` are built in, any other kind is the file
+``generators/<kind>.py`` beside this module (:func:`make_pool`).
 
 :func:`make_family` and :func:`make_long_family` are frozen copies of the
 port's ``lara_tpu_torch/workloads.py`` (themselves copies of ``bench.py``'s),
@@ -14,15 +17,20 @@ copies."""
 
 from __future__ import annotations
 
+import importlib.util
 import math
 import multiprocessing
+import sys
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 from typing import Iterator, List, Sequence
 
 import numpy as np
 
 from gpubench.reference.records import MIN_PROB, RnaRecord
 
+#: where a generator kind that is not built in lives, ``<kind>.py``
+GENERATORS = Path(__file__).resolve().parent / "generators"
 #: yeast tRNA-Phe, the scaffold of ``bench.py``'s tRNA family
 TRNA_BASE = ("GCGGAUUUAGCUCAGUUGGGAGAGCGCCAGACUGAAGAUCUGGAGGUCCUGUGUUCGAUCCACA"
              "GAAUUCGC")
@@ -118,16 +126,30 @@ def seeds(seed: int, count: int) -> List[int]:
 def make_pool(config: dict, traffic: dict, seed: int,
               workers: int = 1) -> List[RnaRecord]:
     """The run's pool of ``traffic["pool_size"]`` records of the
-    configuration's kind."""
+    configuration's kind.  A kind that is not built in is the file
+    ``generators/<kind>.py``, whose ``make(n, generator, seed, workers)``
+    returns the pool (``generator`` is the configuration's whole entry)."""
     gen = config["generator"]
     n = int(traffic["pool_size"])
-    if gen["kind"] == "trna_family":
+    kind = gen["kind"]
+    if kind == "trna_family":
         return make_family(n, int(gen["length"]), seed, workers,
                            float(gen["min_prob"]))
-    if gen["kind"] == "long_family":
+    if kind == "long_family":
         return make_long_family(n, int(gen["length"]), seed,
                                 gen.get("mutations"), gen["scaffold_seed"])
-    raise ValueError(f"unknown generator kind {gen['kind']!r}")
+    path = GENERATORS / f"{kind}.py"
+    if not (kind.isidentifier() and not kind.startswith("_")
+            and path.is_file()):
+        raise ValueError(f"unknown generator kind {kind!r}")
+    # loaded under its package's dotted name, so that a worker process can
+    # import what the generator sends it
+    name = f"{__package__}.generators.{kind}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return list(module.make(n, gen, seed, workers))
 
 
 def families(pool_size: int, family_size: int, seed: int
