@@ -165,7 +165,7 @@ KERNELS = {
     "gotoh_resident": ("lara_tpu_torch/csrc/gotoh_dp.cu",
                        "lara_tpu/ops/gotoh_pallas.py:468"),
     # K4, the edge filter: not Pallas on the TPU but two XLA scans and a
-    # pack (edge_filter_skewed_words)
+    # pack (edge_filter_skewed_words); the pack writes row-major words
     "edge_sweep": ("lara_tpu_torch/csrc/gotoh_dp.cu",
                    "lara_tpu/ops/gotoh.py:337"),
     "edge_pack": ("lara_tpu_torch/csrc/edge_filter.cu",
@@ -631,9 +631,9 @@ def _edge_phase(b, la_max, lb_max, seed, dev, stats):
     (ragged lanes, one full size, padded with 4 as the driver pads), the
     default parameters' gaps and subopt: the sweep's prefixes on the cells
     inside both halves' rectangles and its finals, the pack on the sweep's
-    own output, and the wrapper's words against the plain filter (two
-    scans).  Each is timed beside its bound; returns K4's ms (sweep and
-    pack, as the driver calls them)."""
+    own output (row-major words), and the wrapper's words against the
+    plain filter (two scans).  Each is timed beside its bound; returns K4's
+    ms (sweep and pack, as the driver calls them)."""
     import torch
 
     from lara_tpu_torch.ops import gotoh, gotoh_cuda
@@ -657,11 +657,11 @@ def _edge_phase(b, la_max, lb_max, seed, dev, stats):
 
     prefix_k, finals_k = gotoh_cuda.edge_sweep(*inputs, go, ge)
     words_k = gotoh_cuda.edge_pack(prefix_k, finals_k, *inputs, subopt)
-    filter_k = gotoh_cuda.edge_filter_skewed_words(*inputs, go, ge, subopt,
+    filter_k = gotoh_cuda.edge_filter_active_words(*inputs, go, ge, subopt,
                                                    la_max, lb_max)
     prefix_p, finals_p = gotoh.edge_sweep(*inputs, go, ge)
     words_p = gotoh.edge_pack(prefix_k, finals_k, *inputs, subopt)
-    filter_p = gotoh.edge_filter_skewed_words(*inputs, go, ge, subopt,
+    filter_p = gotoh.edge_filter_active_words(*inputs, go, ge, subopt,
                                               la_max, lb_max)
     torch.cuda.synchronize()
     la2, lb2 = (torch.cat([x, x]) for x in inputs[2:4])
@@ -689,9 +689,9 @@ def _edge_phase(b, la_max, lb_max, seed, dev, stats):
                                                   *inputs, subopt), 20),
             _time_ms(lambda: gotoh.edge_pack(prefix_k, finals_k, *inputs,
                                              subopt), 1))}
-    k4_ms = _time_ms(lambda: gotoh_cuda.edge_filter_skewed_words(
+    k4_ms = _time_ms(lambda: gotoh_cuda.edge_filter_active_words(
         *inputs, go, ge, subopt, la_max, lb_max), 20)
-    plain_ms = _time_ms(lambda: gotoh.edge_filter_skewed_words(
+    plain_ms = _time_ms(lambda: gotoh.edge_filter_active_words(
         *inputs, go, ge, subopt, la_max, lb_max), 1)
     # bounds from this batch: the sweep writes the prefix of every valid
     # cell of both halves (2 x 21 operations per cell); the pack reads two

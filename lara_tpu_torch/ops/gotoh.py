@@ -17,10 +17,12 @@ lb_max + 1, W = la_max + 1) and ``finals`` is ``[3, B]`` int32 (M, H, V at
 (la, lb)).  :func:`compact_lines` turns the dense partner map into the
 ordered line list, as plain torch on every device.
 
-The edge filter (:func:`edge_filter_skewed_words`, once per chunk) is K4
+The edge filter (:func:`edge_filter_active_words`, once per chunk) is K4
 on the card: :func:`edge_sweep` is its sweep's plain version (the forward
 prefix over each pair and over its reversed sequences, in K1's layout) and
-:func:`edge_pack` its pack's; together they give the filter's words.
+:func:`edge_pack` its pack's; together they give the filter's row-major
+words, which :func:`unpack_active_words` turns into the host's
+``[B, LA, LB]`` grid.
 """
 
 from __future__ import annotations
@@ -302,13 +304,20 @@ def _sub_grid(submat: torch.Tensor, seq_a: torch.Tensor,
     return submat[seq_a.long()[:, :, None], seq_b.long()[:, None, :]]
 
 
-def edge_filter_skewed_words(seq_a, seq_b, la, lb, submat, go, ge, subopt,
+def edge_filter_active_words(seq_a, seq_b, la, lb, submat, go, ge, subopt,
                              la_max: int, lb_max: int) -> torch.Tensor:
-    """Batched ``generateEdges`` (``edge_filter.hpp:131-158``) in skewed
-    coordinates: an edge (a, b) survives iff prefix + sub(a, b) + suffix >=
-    opt - subopt.  Returns ``[B, K+1]`` int32: K packed words of skewed
-    active bits plus the per-lane optimum (rectangularise on the host with
-    :func:`unskew_active_words`)."""
+    """Batched ``generateEdges`` (``edge_filter.hpp:131-158``), the edge
+    filter of one chunk: an edge (a, b) survives iff prefix + sub(a, b) +
+    suffix >= opt - subopt.  Returns ``[B, nw+1]`` int32 in row-major
+    order, nw = ceil(la_max * lb_max / 32) words whose bit k of word w is
+    edge (a, b) at 32w + k = a * lb_max + b (0 outside the lane's (la, lb)
+    and past la_max * lb_max), then the per-lane optimum.  The words are
+    the active section of the one-device upload
+    (``device_driver._packed_buffer``); :func:`unpack_active_words` reads
+    them.  The grid is the JAX package's ``unskew_active_words(
+    edge_filter_skewed_words(...))``, computed as it computes it: two scans
+    in skewed coordinates.  Plain version of K4 (:func:`edge_sweep` then
+    :func:`edge_pack`)."""
     dev = seq_a.device
     la = la.to(I32)
     lb = lb.to(I32)
@@ -334,12 +343,14 @@ def edge_filter_skewed_words(seq_a, seq_b, la, lb, submat, go, ge, subopt,
     total = res_f.aux + sub_shifted + suf               # [D, B, W]
     thresh = (opt - int(subopt))[None, :, None]
     act = in_bounds & (total >= thresh).permute(1, 0, 2)
-    return _packed_words(act, opt)
+    rows = torch.arange(la_max, device=dev)[:, None]
+    cols = torch.arange(lb_max, device=dev)[None, :]
+    return _packed_words(act[:, rows + cols, rows], opt)   # [B, LA, LB]
 
 
 def _packed_words(act: torch.Tensor, opt: torch.Tensor) -> torch.Tensor:
-    """[B, D, W] active bits -> ``[B, K+1]`` int32: bit k of word w is flat
-    index 32w + k (zero padding past D * W), then ``opt``."""
+    """[B, LA, LB] active bits -> ``[B, nw+1]`` int32: bit k of word w is
+    cell 32w + k = a * LB + b (zero padding past LA * LB), then ``opt``."""
     b = act.shape[0]
     flat = act.reshape(b, -1).to(torch.int64)
     pad = (-flat.shape[1]) % 32
@@ -384,53 +395,42 @@ def edge_sweep(seq_a, seq_b, la, lb, submat, go: int, ge: int):
 def edge_pack(prefix, finals, seq_a, seq_b, la, lb, submat,
               subopt: int) -> torch.Tensor:
     """Plain version of K4's pack: from :func:`edge_sweep`'s output, the
-    ``[B, K+1]`` words of :func:`edge_filter_skewed_words`.  Edge (a, b2)
-    of pair b is active iff prefix[b] at (a, b2) + sub(a, b2) +
-    prefix[B + b] at (la-1-a, lb-1-b2) >= opt - subopt, opt the best of
+    ``[B, nw+1]`` row-major words of :func:`edge_filter_active_words`.
+    Edge (a, b2) of pair b is active iff prefix[b] at (a, b2) + sub(a, b2)
+    + prefix[B + b] at (la-1-a, lb-1-b2) >= opt - subopt, opt the best of
     lane b's finals; it reads no cell outside the lanes' rectangles."""
     b, la_max = seq_a.shape
     lb_max = seq_b.shape[1]
-    num_diag, width = la_max + lb_max + 1, la_max + 1
+    width = la_max + 1
     dev = seq_a.device
     la_c = la.to(torch.int64)[:, None, None]
     lb_c = lb.to(torch.int64)[:, None, None]
     opt = torch.maximum(torch.maximum(finals[0, :b], finals[1, :b]),
                         finals[2, :b])
-    d_idx = torch.arange(num_diag, device=dev)[None, :, None]
-    a_idx = torch.arange(width, device=dev)[None, None, :]
-    b2_idx = d_idx - a_idx
-    in_bounds = (a_idx < la_c) & (b2_idx >= 0) & (b2_idx < lb_c)  # [B, D, W]
+    a_idx = torch.arange(la_max, device=dev)[None, :, None]
+    b2_idx = torch.arange(lb_max, device=dev)[None, None, :]
+    in_bounds = (a_idx < la_c) & (b2_idx < lb_c)    # [B, LA, LB]
 
     def at(lanes, d, a):
         """lanes [B, D, W] at per-edge (d, a), 0 off the edges"""
         flat = torch.where(in_bounds, d * width + a, 0)
         return lanes.reshape(b, -1).gather(1, flat.reshape(b, -1)) \
-            .reshape(b, num_diag, width)
+            .reshape(b, la_max, lb_max)
 
-    fwd = at(prefix[:b], d_idx, a_idx)
-    bwd = at(prefix[b:], la_c + lb_c - 2 - d_idx, la_c - 1 - a_idx)
-    cell = torch.where(in_bounds, a_idx * lb_max + b2_idx, 0)
-    sub = _sub_grid(submat.to(I32), seq_a, seq_b).reshape(b, -1) \
-        .gather(1, cell.reshape(b, -1)).reshape(b, num_diag, width)
-    total = fwd + sub + bwd
+    fwd = at(prefix[:b], a_idx + b2_idx, a_idx)
+    bwd = at(prefix[b:], la_c + lb_c - 2 - a_idx - b2_idx, la_c - 1 - a_idx)
+    total = fwd + _sub_grid(submat.to(I32), seq_a, seq_b) + bwd
     act = in_bounds & (total >= (opt - int(subopt))[:, None, None])
     return _packed_words(act, opt)
 
 
-def unskew_active_words(packed_np: np.ndarray, la_max: int, lb_max: int):
-    """Host side of :func:`edge_filter_skewed_words` (numpy): unpack the
-    skewed bit words and rectangularise with a strided view -- the unskew
-    map (a, b2) -> (a+b2)*W + a has constant strides (W+1, W).  Returns
-    (active [B, LA, LB] bool, opt [B]).  Same as
-    ``lara_tpu.ops.gotoh.unskew_active_words``, whose module imports JAX."""
-    b = packed_np.shape[0]
-    width = la_max + 1
-    num_diag = la_max + lb_max + 1
-    words = np.ascontiguousarray(packed_np[:, :-1]).view(np.uint8)
-    flat = np.unpackbits(words, axis=1, bitorder="little").view(bool)
-    flat = np.ascontiguousarray(flat[:, : num_diag * width])
-    s0, s1 = flat.strides
-    active = np.lib.stride_tricks.as_strided(
-        flat, shape=(b, la_max, lb_max),
-        strides=(s0, s1 * (width + 1), s1 * width)).copy()
-    return active, packed_np[:, -1]
+def unpack_active_words(packed_np: np.ndarray, la_max: int, lb_max: int):
+    """Host side of :func:`edge_filter_active_words` (numpy): one
+    contiguous unpack of the row-major words.  Returns (active [B, LA, LB]
+    bool, a view of the unpacked bits with strides (LA*LB, LB, 1); opt
+    [B])."""
+    packed_np = np.ascontiguousarray(packed_np, dtype="<i4")
+    flat = np.unpackbits(packed_np.view(np.uint8), axis=1,
+                         count=la_max * lb_max, bitorder="little")
+    return (flat.view(bool).reshape(packed_np.shape[0], la_max, lb_max),
+            packed_np[:, -1])

@@ -16,9 +16,11 @@ matched cells, plus the ordered line list with ``emit_lines=True``.  A plan
   ``csrc/gotoh_dp.cu``.
 
 Once per chunk, before any iteration, the edge filter
-(:func:`edge_filter_skewed_words`) runs K4: its sweep (:func:`edge_sweep`,
+(:func:`edge_filter_active_words`) runs K4: its sweep (:func:`edge_sweep`,
 K1's kernel in a prefix mode, ``csrc/gotoh_dp.cu``) and its pack
-(:func:`edge_pack`, ``csrc/edge_filter.cu``).
+(:func:`edge_pack`, ``csrc/edge_filter.cu``), which writes the active grid
+as row-major words, word for word the active section of the driver's
+upload (``device_driver._packed_buffer``).
 
 Every wrapper launches its kernel for CUDA tensors, or raises; for CPU
 tensors it runs the plain version from :mod:`lara_tpu_torch.ops.gotoh`.
@@ -330,10 +332,11 @@ def edge_pack(prefix: torch.Tensor, finals: torch.Tensor,
               seq_a: torch.Tensor, seq_b: torch.Tensor, la: torch.Tensor,
               lb: torch.Tensor, submat: torch.Tensor,
               subopt: int) -> torch.Tensor:
-    """K4's pack: the ``[B, K+1]`` int32 words of
-    :func:`edge_filter_skewed_words` from :func:`edge_sweep`'s output
-    (:func:`lara_tpu_torch.ops.gotoh.edge_pack`); ``csrc/edge_filter.cu``
-    on the card."""
+    """K4's pack: the ``[B, nw+1]`` int32 row-major words of
+    :func:`edge_filter_active_words` from :func:`edge_sweep`'s output
+    (:func:`lara_tpu_torch.ops.gotoh.edge_pack`): bit k of word w is edge
+    (a, b) at 32w + k = a * lb_max + b, nw = ceil(la_max * lb_max / 32),
+    then each pair's optimum.  ``csrc/edge_filter.cu`` on the card."""
     if not prefix.is_cuda:
         return gotoh.edge_pack(prefix, finals, seq_a, seq_b, la, lb, submat,
                                subopt)
@@ -342,7 +345,7 @@ def edge_pack(prefix: torch.Tensor, finals: torch.Tensor,
     num_diag, width = la_max + lb_max + 1, la_max + 1
     _build.require(prefix, "prefix", I32, (2 * b, num_diag, width), dev)
     _build.require(finals, "finals", I32, (3, 2 * b), dev)
-    out = torch.empty((b, -(-num_diag * width // 32) + 1), dtype=I32,
+    out = torch.empty((b, -(-la_max * lb_max // 32) + 1), dtype=I32,
                       device=dev)
     rc = _build.library().lara_edge_pack(
         prefix.data_ptr(), finals.data_ptr(), seq_a.data_ptr(),
@@ -353,18 +356,18 @@ def edge_pack(prefix: torch.Tensor, finals: torch.Tensor,
     return out
 
 
-def edge_filter_skewed_words(seq_a: torch.Tensor, seq_b: torch.Tensor,
+def edge_filter_active_words(seq_a: torch.Tensor, seq_b: torch.Tensor,
                              la: torch.Tensor, lb: torch.Tensor,
                              submat: torch.Tensor, go: int, ge: int,
                              subopt: int, la_max: int,
                              lb_max: int) -> torch.Tensor:
     """The edge filter of one chunk (the contract of
-    :func:`lara_tpu_torch.ops.gotoh.edge_filter_skewed_words`, which runs
-    for CPU tensors): ``[B, K+1]`` int32 packed skewed active bits plus
-    each pair's optimum.  K4 on the card: :func:`edge_sweep`, then
+    :func:`lara_tpu_torch.ops.gotoh.edge_filter_active_words`, which runs
+    for CPU tensors): ``[B, nw+1]`` int32 row-major active bits plus each
+    pair's optimum.  K4 on the card: :func:`edge_sweep`, then
     :func:`edge_pack`."""
     if not seq_a.is_cuda:
-        return gotoh.edge_filter_skewed_words(seq_a, seq_b, la, lb, submat,
+        return gotoh.edge_filter_active_words(seq_a, seq_b, la, lb, submat,
                                               go, ge, subopt, la_max, lb_max)
     if tuple(seq_a.shape[1:]) != (la_max,) \
             or tuple(seq_b.shape[1:]) != (lb_max,):

@@ -514,7 +514,11 @@ def _run_refill(store, task: _Task, params: Parameters,
 def _filter_and_build(store, chunk, params: Parameters, la_max: int,
                       lb_max: int, device: torch.device):
     """Edge filter on ``device`` + host model build for one chunk:
-    (models, las)."""
+    (models, las).  K4 hands the chunk's active grid over as row-major
+    words (bit a * lb_max + b of a lane; word for word the active section
+    of :func:`_packed_buffer`), so the host's "unskew" is one contiguous
+    unpack, and :func:`interactions.build_chunk` reads the unpacked bits in
+    place as a ``[B, LA, LB]`` view."""
     b = len(chunk)
     go, ge = int(params.gap_open_int), int(params.gap_extend_int)
     subopt = int(f2i(params.suboptimal_diff))
@@ -537,12 +541,12 @@ def _filter_and_build(store, chunk, params: Parameters, la_max: int,
         def upload(x):
             return torch.from_numpy(x).to(device)
 
-        packed = gotoh_cuda.edge_filter_skewed_words(
+        packed = gotoh_cuda.edge_filter_active_words(
             upload(seq_a), upload(seq_b), upload(las), upload(lbs),
             upload(np.asarray(params.score_matrix, np.int32)), go, ge,
             subopt, la_max, lb_max).cpu().numpy()
         with timing.phase("edge filter: unskew (host)"):
-            active_np, opt_np = gotoh.unskew_active_words(packed, la_max,
+            active_np, opt_np = gotoh.unpack_active_words(packed, la_max,
                                                           lb_max)
 
     with timing.phase("interaction build (host)"):

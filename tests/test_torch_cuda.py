@@ -626,13 +626,13 @@ def test_wrappers_reject_bad_inputs(cuda):
         matching_cuda.rounds_loop_cuda(cols, cols, cols, cols, cols, 5)
     submat = torch.zeros((5, 5), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="seq_a"):
-        gotoh_cuda.edge_filter_skewed_words(
+        gotoh_cuda.edge_filter_active_words(
             cols.long(), cols, la, la, submat, GO, GE, 0, 4, 4)
     with pytest.raises(ValueError, match="submat"):
-        gotoh_cuda.edge_filter_skewed_words(
+        gotoh_cuda.edge_filter_active_words(
             cols, cols, la, la, submat[:4], GO, GE, 0, 4, 4)
     with pytest.raises(ValueError, match="seq_b"):
-        gotoh_cuda.edge_filter_skewed_words(
+        gotoh_cuda.edge_filter_active_words(
             cols, cols, la, la, submat, GO, GE, 0, 4, 5)
 
 
@@ -686,17 +686,21 @@ def _edge_problem(b, la_max, lb_max, seed, dev):
 
 
 # (batch, la_max, lb_max, seed): the tRNA chunk, a ragged non-square batch
-# (la_max not a multiple of 32), one 1x1 lane, one 16S lane
+# (la_max not a multiple of 32; lb_max % 32 and la_max * lb_max % 32 not 0,
+# so words straddle rows and the last has padding), one 1x1 lane, one 16S
+# lane, the ~300 nt and 16S chunks, and rows shorter than a word
 EDGE_CASES = [(128, 96, 96, 41), (40, 333, 700, 43), (1, 1, 1, 45),
-              (1, 1536, 1536, 47)]
+              (1, 1536, 1536, 47), (32, 320, 320, 42), (32, 1536, 1536, 46),
+              (5, 45, 23, 48)]
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)
 def test_edge_filter_kernels_match_plain(case, cuda):
     """K4 against its plain versions, exactly: the sweep's prefixes on the
-    cells inside both halves' rectangles and its finals, the pack on the
-    sweep's own output, and the wrapper's words against the plain filter
-    (two scans), at the default subopt and at 0; one launch of each."""
+    cells inside both halves' rectangles and its finals, the pack's
+    row-major words on the sweep's own output, and the wrapper's words
+    against the plain filter (two scans), at the default subopt and at 0;
+    one launch of each."""
     b, la_max, lb_max, seed = case
     inputs, (go, ge, subopt) = _edge_problem(b, la_max, lb_max, seed, cuda)
     before = dict(_build.launches)
@@ -714,10 +718,11 @@ def test_edge_filter_kernels_match_plain(case, cuda):
                torch.where(valid, prefix_p, 0), "prefix")
     _int_equal(words_k, gotoh.edge_pack(prefix_k, finals_k, *inputs, subopt),
                "pack")
+    assert words_k.shape == (b, -(-la_max * lb_max // 32) + 1)
     for cut in (subopt, 0):
-        _int_equal(gotoh_cuda.edge_filter_skewed_words(
+        _int_equal(gotoh_cuda.edge_filter_active_words(
             *inputs, go, ge, cut, la_max, lb_max),
-            gotoh.edge_filter_skewed_words(*inputs, go, ge, cut, la_max,
+            gotoh.edge_filter_active_words(*inputs, go, ge, cut, la_max,
                                            lb_max), f"words at {cut}")
 
 

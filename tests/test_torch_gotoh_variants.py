@@ -168,7 +168,7 @@ def test_fused_dchunk_rejects_non_positive(monkeypatch, bad):
 
 @pytest.mark.parametrize("seed", range(2))
 def test_edge_filter_matches_edge_filter_batch(seed):
-    """The port's skewed-word filter, unskewed on the host, against the
+    """The port's row-major filter, unpacked on the host, against the
     JAX package's dense ``edge_filter_batch`` (the hybrid's model build)."""
     rng = np.random.default_rng(70 + seed)
     params = Parameters(in_file="<test>")
@@ -186,10 +186,10 @@ def test_edge_filter_matches_edge_filter_batch(seed):
     want_active, want_opt = jax_gotoh.edge_filter_batch(
         seq_a, seq_b, la, lb, submat, go, ge, subopt, la_max, lb_max)
     t = torch.from_numpy
-    packed = gotoh.edge_filter_skewed_words(
+    packed = gotoh.edge_filter_active_words(
         t(seq_a), t(seq_b), t(la), t(lb), t(submat), go, ge, subopt,
         la_max, lb_max).numpy()
-    active, opt = gotoh.unskew_active_words(packed, la_max, lb_max)
+    active, opt = gotoh.unpack_active_words(packed, la_max, lb_max)
     np.testing.assert_array_equal(opt, np.asarray(want_opt))
     for k in range(b):
         np.testing.assert_array_equal(
