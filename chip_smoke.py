@@ -71,8 +71,7 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    all four (16S is one chunk, the mixed family's buckets run one after
    another), the tRNA family with its structures cleared as it is read
    (one iteration of the 250 dispatched, its solve phase beside the
-   capture), lane refill (``LARA_REFILL=1 LARA_MAX_BATCH=64``: 120 tRNA
-   pairs through 64 lanes), the hybrid backend at ``-m 0`` on tRNA, the
+   capture), the hybrid backend at ``-m 0`` on tRNA, the
    hybrid at ``-m 12`` on ~300 nt under ``LARA_DP_RESIDENT=1``, and the
    fused path under ``LARA_DP_GRID=1`` on tRNA; and KB's own entry
    point, ``lara_tpu_torch.benchmark.profile_wavefront_layout.main``, which
@@ -89,12 +88,12 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    K1-grid + K2-grid + K3) exactly once per iteration of the JAX loop
    (the longest lane's), and KI-head, KI-lines and KI-tail with them, the
    loop exit's kernel once per dispatch;
-   each run prints its model uploads (layout, bytes, and the ten arrays'
-   bytes), each dispatch's iterations run, and the hybrid's graph
-   replays.
+   each run prints its model uploads (layout, bytes, and the bytes the
+   ten arrays of ``_model_rows`` would take), each dispatch's iterations
+   run, and the hybrid's graph replays.
    16S runs again under
    ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (split 14 + 14, pipelined) and
-   under ``LARA_NO_PIPELINE=1``, the mixed family serial and under
+   by default again, the mixed family serial and under
    ``LARA_PIPELINE=1`` in turns; each must write the same bytes.  Over
    shards the count is once per iteration of each shard's dispatches.
    Every fused path's dispatches must be CUDA graphs (a spy on
@@ -918,12 +917,11 @@ def _graph_dispatches():
 def _uploads():
     """A list that gets (layout, bytes, bytes of the ten arrays) for every
     model upload of the driver: a packed buffer (``packed15`` or
-    ``packed_seq``) or the ten arrays of ``_model_rows`` (several devices,
-    refill splices)."""
+    ``packed_seq``), on any number of devices."""
     from lara_tpu_torch.solver import device_driver
 
     sent = []
-    packed, raw = device_driver._packed_buffer, device_driver._upload_model
+    packed = device_driver._packed_buffer
 
     def spy_packed(models, la_max, lb_max, dcap, n, *args, **kw):
         buf = packed(models, la_max, lb_max, dcap, n, *args, **kw)
@@ -932,18 +930,11 @@ def _uploads():
                      _raw_bytes(la_max, lb_max, n, dcap)))
         return buf
 
-    def spy_raw(rows, device):
-        nbytes = sum(np.asarray(x).nbytes for x in rows)
-        sent.append(("raw", nbytes, nbytes))
-        return raw(rows, device)
-
     device_driver._packed_buffer = spy_packed
-    device_driver._upload_model = spy_raw
     try:
         yield sent
     finally:
         device_driver._packed_buffer = packed
-        device_driver._upload_model = raw
 
 
 def _raw_bytes(la_max, lb_max, lanes, dcap):
@@ -1111,24 +1102,6 @@ def _pair_keys(results):
                    r.best_upper, r.best_lower) for r in results)
 
 
-def _refill_path(family, dev, tmp, expect):
-    """The fused path with lane refill: 120 tRNA pairs through 64 lanes
-    (``LARA_REFILL=1 LARA_MAX_BATCH=64``, the configuration the JAX driver
-    measured, ``lara_tpu/solver/device_driver.py:124-128``)."""
-    from lara_tpu_torch.solver import device_driver
-
-    device_driver.last_refill = None
-    run = _main_path(*family, dev, tmp, expect,
-                     env={"LARA_REFILL": "1", "LARA_MAX_BATCH": "64"})[0]
-    stats = device_driver.last_refill
-    if stats is None or (stats.pairs, stats.lanes) != (120, 64):
-        raise AssertionError(f"the refill did not run as configured: {stats}")
-    print(f"    refill: {stats.pairs} pairs through {stats.lanes} lanes, "
-          f"{stats.dispatches} dispatches, mean occupancy "
-          f"{stats.occupancy:.4f}")
-    return run
-
-
 @contextlib.contextmanager
 def _pipelined_chunks():
     """A list that gets (pairs, on a CUDA stream of its own) for every
@@ -1154,8 +1127,8 @@ def _long_path(family, dev, tmp, expect, k4_ms):
     one chunk of 32 lanes, neither split nor pipelined; every pair is
     checked against the native baseline on a thread pool.  Then
     ``LARA_SPLIT_SINGLE=1 LARA_PIPELINE=1`` (two halves of 14 pairs, 16
-    lanes each, through the pipeline on the solver thread's stream) and
-    ``LARA_NO_PIPELINE=1`` must write the same library bytes.  The default
+    lanes each, through the pipeline on the solver thread's stream) and the
+    default again must write the same library bytes.  The default
     run's "edge filter (device)" phase is printed beside ``k4_ms``, K4's
     time at B=32 1536x1536 in phase 2.  Returns the default run's (launch
     counts, library, wall, run)."""
@@ -1181,9 +1154,8 @@ def _long_path(family, dev, tmp, expect, k4_ms):
             same_as=same)[2]
         if solved != [(14, True), (14, True)]:
             raise AssertionError(f"16S did not split and pipeline: {solved}")
-    walls["LARA_NO_PIPELINE=1"] = _main_path(
-        *family, dev, tmp, expect, env={"LARA_NO_PIPELINE": "1"},
-        same_as=same)[2]
+    walls["default again"] = _main_path(*family, dev, tmp, expect,
+                                        same_as=same)[2]
     print("    16S wall: " + ", ".join(f"{k} {v:.3f} s"
                                        for k, v in walls.items())
           + " (pipelined phase times overlap and sum past the wall)")
@@ -2370,8 +2342,6 @@ def main() -> int:
             count(one[label][0])
         print("the loop exit on a family whose lanes converge at once:")
         count(_structure_free_path(dev, tmp))
-        print("lane refill:")
-        count(_refill_path(trna, dev, tmp, fused))
         print("16S, one 1536x1536 bucket:")
         one[long16[0]] = _long_path(long16, dev, tmp, fused, k4_16s)
         count(one[long16[0]][0])

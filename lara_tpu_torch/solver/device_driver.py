@@ -1,6 +1,6 @@
 """Host orchestration of the batched solver on one device or several.
 
-Counterpart of :mod:`lara_tpu.solver.device_driver`, with the same knobs:
+Counterpart of :mod:`lara_tpu.solver.device_driver`:
 
 * pairs are bucketed by padded (LA, LB) class and each bucket is cut into
   chunks under a cell budget (``LARA_MAX_BATCH`` caps the chunk width);
@@ -9,34 +9,30 @@ Counterpart of :mod:`lara_tpu.solver.device_driver`, with the same knobs:
   padded :class:`~lara_tpu_torch.solver.device_solver.BatchModel`, the
   solve, one packed result download, and the host postprocessing
   (:func:`_postprocess_lane`, as the JAX driver's);
-* the upload, on one device, is one pinned int32 buffer in the JAX
-  driver's layout (``lara_tpu/solver/device_driver.py:776-806``: active
-  bits, dual columns ``packed15`` or ``packed_seq``, sequences, scale,
-  lengths), unpacked on the device (:func:`_unpack_model`), where the
-  seq-score grid is rebuilt from the sequences; several devices and the
-  lane refill's splice upload the ten arrays of :func:`_model_rows`, as
-  the JAX driver does;
-* lane refill (``LARA_REFILL=1``, cancelled by ``LARA_NO_REFILL``): a
-  bucket wider than its chunk runs through one batch of lanes, and between
-  dispatches every free lane takes the next waiting pair;
+* the upload, on any number of devices, is one pinned int32 buffer in the
+  JAX driver's one-device layout (``lara_tpu/solver/device_driver.py:
+  776-806``: active bits, dual columns ``packed15`` or ``packed_seq``,
+  sequences, scale, lengths), unpacked on the first device
+  (:func:`_unpack_model`), where the seq-score grid is rebuilt from the
+  sequences;
+* chunks run one after the other by default; the cross-chunk pipeline
+  (more than one task and ``LARA_PIPELINE=1``; the JAX package runs it by
+  default): the main thread prepares chunk k+1 (edge filter, build, pack,
+  upload), a solver thread runs chunk k's dispatches on its own CUDA
+  stream, and a download thread brings chunk k-1's result down and
+  post-processes it; depth 2, results in task order;
 * the single-bucket split (``LARA_SPLIT_SINGLE=1``; unset or ``0``, no
   split, where the JAX package splits long pairs by default): a workload
   of one chunk is cut at its midpoint so that the pipeline can engage;
-* the cross-chunk pipeline (more than one task, ``LARA_PIPELINE=1``, and
-  ``LARA_NO_PIPELINE`` unset; the JAX package runs it by default): the
-  main thread prepares chunk k+1 (edge filter, build, pack, upload), a
-  solver thread runs chunk k's dispatches on its own CUDA stream, and a
-  download thread brings chunk k-1's result down and post-processes it;
-  depth 2, results in task order;
 * one device byte budget (:data:`DEVICE_BUDGET`, against the port's own
   estimate :func:`_chunk_est_bytes`) gates the pipeline, bounds the bytes
   left undrained in it, and halves a chunk too large to solve at once;
 * several devices (``lara_tpu/solver/device_driver.py:720-721,837-846``):
   a chunk of more than one pair pads to at least one lane per device and
-  its lanes are split over the devices
+  its lanes are split over the devices in shards
   (:func:`lara_tpu_torch.parallel.mesh.solve_batch_sharded`); the edge
-  filter, the model upload, lane refill and the hybrid backend run on the
-  first device, as the JAX package runs them on its default device.
+  filter, the model upload and the hybrid backend run on the first
+  device, as the JAX package runs them on its default device.
 
 The scheduling changes when work runs, never the results: every lane's
 arithmetic is independent of the others, and every carry write is masked
@@ -79,30 +75,16 @@ CELL_BUDGET = 128 * 1024 * 1024
 #: for one H100 with 80 GB: a chunk above it is solved outside the
 #: pipeline, the chunks waiting in the pipeline are drained down to it (one
 #: may stay whatever its size), and a chunk above twice it is solved in
-#: halves (lane refill falls back to plain chunks there).  Peak residency
-#: stays near two budgets (40 GB), which leaves the caching allocator and
-#: the edge filter of the chunk being prepared their room.
+#: halves.  Peak residency stays near two budgets (40 GB), which leaves the
+#: caching allocator and the edge filter of the chunk being prepared their
+#: room.
 DEVICE_BUDGET = 20_000_000_000
-
-#: the refill run of the last ``LARA_REFILL`` bucket solved in this process
-last_refill = None
-
-
-class RefillStats(NamedTuple):
-    la_max: int
-    lb_max: int
-    pairs: int
-    lanes: int
-    dispatches: int
-    occupancy: float  # mean share of lanes holding an active pair
 
 
 class _Task(NamedTuple):
-    kind: str          # "chunk" or "refill"
     la_max: int
     lb_max: int
     pairs: list
-    window: int = 0    # refill: pairs per batch of lanes
 
 
 class _Prepared(NamedTuple):
@@ -210,21 +192,15 @@ def _padded_batch(b: int, n_dev: int = 1) -> int:
 
 
 def _plan_tasks(store, pairs, n_dev: int = 1) -> List[_Task]:
-    """Buckets cut into chunks, or into one refill task each under
-    ``LARA_REFILL``; a lone long-pair chunk split in two."""
+    """Buckets cut into chunks of at most ``max_batch`` pairs; a lone
+    long-pair chunk split in two."""
     max_batch_cap = int(os.environ.get("LARA_MAX_BATCH", DEFAULT_MAX_BATCH))
-    refill = bool(os.environ.get("LARA_REFILL")) \
-        and not os.environ.get("LARA_NO_REFILL")
     tasks = []
     for (la_max, lb_max), bucket_pairs in buckets_of(store, pairs):
         max_batch = max(1, min(max_batch_cap,
                                CELL_BUDGET // (la_max * lb_max)))
-        if refill and len(bucket_pairs) > max_batch > 1:
-            tasks.append(_Task("refill", la_max, lb_max, bucket_pairs,
-                               max_batch))
-            continue
         for start in range(0, len(bucket_pairs), max_batch):
-            tasks.append(_Task("chunk", la_max, lb_max,
+            tasks.append(_Task(la_max, lb_max,
                                bucket_pairs[start:start + max_batch]))
     return _split_single(tasks, n_dev)
 
@@ -243,9 +219,7 @@ def _split_single(tasks: List[_Task], n_dev: int = 1) -> List[_Task]:
     devices each half is floored at the device count (6 pairs over 8
     devices: 8 lanes unsplit, 8 + 8 split), a fault the JAX package's
     split has (``ADVICE.md:3``)."""
-    if len(tasks) != 1 or tasks[0].kind != "chunk" \
-            or os.environ.get("LARA_SPLIT_SINGLE") != "1" \
-            or os.environ.get("LARA_NO_PIPELINE"):
+    if len(tasks) != 1 or os.environ.get("LARA_SPLIT_SINGLE") != "1":
         return tasks
     task = tasks[0]
     chunk = task.pairs
@@ -259,13 +233,12 @@ def _split_single(tasks: List[_Task], n_dev: int = 1) -> List[_Task]:
 
 
 def _pipeline_on() -> bool:
-    """The cross-chunk pipeline runs under ``LARA_PIPELINE=1`` unless
-    ``LARA_NO_PIPELINE`` is set.  It is off by default on one device,
-    unlike the JAX package: on an H100 every stage at the bench's shapes is
-    host-bound Python, the three threads contend for the interpreter, and
-    pipelined walls read 26-30% longer than serial ones (PERF.md)."""
-    return os.environ.get("LARA_PIPELINE") == "1" \
-        and not os.environ.get("LARA_NO_PIPELINE")
+    """The cross-chunk pipeline runs under ``LARA_PIPELINE=1``.  It is off
+    by default, unlike the JAX package: on an H100 every stage at the
+    bench's shapes is host-bound Python, the three threads contend for the
+    interpreter, and pipelined walls read 26-30% longer than serial ones
+    (PERF.md)."""
+    return os.environ.get("LARA_PIPELINE") == "1"
 
 
 def _run_tasks(store, tasks: List[_Task], params: Parameters,
@@ -274,13 +247,10 @@ def _run_tasks(store, tasks: List[_Task], params: Parameters,
         yield from _pipeline(store, tasks, params, devices)
         return
     for task in tasks:
-        if task.kind == "refill":
-            yield from _run_refill(store, task, params, devices)
-        else:
-            models, _ = _filter_and_build(store, task.pairs, params,
-                                          task.la_max, task.lb_max, devices[0])
-            yield from _solve_models(task.pairs, models, params, task.la_max,
-                                     task.lb_max, devices)
+        models, _ = _filter_and_build(store, task.pairs, params, task.la_max,
+                                      task.lb_max, devices[0])
+        yield from _solve_models(task.pairs, models, params, task.la_max,
+                                 task.lb_max, devices)
 
 
 def _pipeline(store, tasks: List[_Task], params: Parameters,
@@ -300,11 +270,6 @@ def _pipeline(store, tasks: List[_Task], params: Parameters,
             ThreadPoolExecutor(max_workers=1) as download_thread:
         pending = deque()  # (download future, est bytes), in task order
         for task in tasks:
-            if task.kind == "refill":
-                while pending:
-                    yield from pending.popleft()[0].result()
-                yield from _run_refill(store, task, params, devices)
-                continue
             # bound the undrained bytes before the next upload; one chunk
             # may stay pending whatever its size, so that a chunk above the
             # budget does not serialise the pipeline
@@ -422,95 +387,6 @@ def _solve_models(chunk, models, params: Parameters, la_max: int,
     yield from _postprocess(packed, s, chunk, models, params)
 
 
-def _run_refill(store, task: _Task, params: Parameters,
-                devices: List[torch.device]) -> Iterator[PairResult]:
-    """Solve a bucket wider than its batch with chunk-boundary lane refill:
-    after every dispatch the finished lanes are harvested from one packed
-    download and every free lane, padding lanes included, takes the next
-    waiting pair (the reference's work stealing,
-    ``subgradient_solver.hpp:286-325``; ``lara_tpu/solver/
-    device_driver.py:380-500``).  Exact because ``solve_batch_chunk``
-    prepares its loop invariants from the spliced model on every call and
-    every carry write is masked per lane."""
-    global last_refill
-    la_max, lb_max, bucket_pairs, window = (task.la_max, task.lb_max,
-                                            task.pairs, task.window)
-    # every model up front: the dual capacity and the scan depth must cover
-    # any pair of the bucket in any lane
-    models = []
-    for start in range(0, len(bucket_pairs), window):
-        built, _ = _filter_and_build(store, bucket_pairs[start:start + window],
-                                     params, la_max, lb_max, devices[0])
-        models.extend(built)
-    dcap = _chunk_dcap(models)
-    if _chunk_est_bytes(window, la_max, lb_max, dcap) > 2 * DEVICE_BUDGET:
-        # too wide to refill in device memory: plain sequential chunks
-        for start in range(0, len(bucket_pairs), window):
-            yield from _solve_models(
-                bucket_pairs[start:start + window],
-                models[start:start + window], params, la_max, lb_max, devices)
-        return
-
-    go, ge = int(params.gap_open_int), int(params.gap_extend_int)
-    step0 = np.float32(params.step_size_factor)
-    n_iter = int(params.num_iterations)
-    scan_steps = _scan_steps(models, dcap)
-    model, _ = _pack_models(models[:window], params, la_max, lb_max,
-                            devices[0], dcap, len(devices))
-    bp = _padded_batch(window, len(devices))
-    carry = device_solver._init_carry(bp, dcap, la_max, step0, n_iter,
-                                      devices[0])
-    # lane k holds (pair, model), or None (padding or harvested)
-    lane_pair: List = [None] * bp
-    for k in range(window):
-        lane_pair[k] = (bucket_pairs[k], models[k])
-    next_i = window
-    dispatches = occupied = 0
-    steps = device_solver.dispatch_size()
-    while True:
-        with timing.phase("subgradient solve (device)"):
-            carry = device_solver.solve_batch_chunk(
-                model, carry, go, ge, la_max, lb_max, steps,
-                int(params.max_nondecr_iterations), int(params.matching),
-                scan_steps)
-            with timing.phase("dispatch flag wait (host)"):
-                flags = carry.lane_active.cpu().numpy()
-        dispatches += 1
-        occupied += sum(1 for k in range(bp)
-                        if lane_pair[k] is not None and flags[k])
-        finished = [k for k in range(bp)
-                    if lane_pair[k] is not None and not flags[k]]
-        if finished:
-            with timing.phase("result download (host)"):
-                packed, s = _download_result(
-                    device_solver._result_of(carry), params)
-            for k in finished:
-                pair, mdl = lane_pair[k]
-                lane_pair[k] = None
-                yield _postprocess_lane(packed, s, k, pair, mdl, params,
-                                        mdl.la)
-        free = [k for k in range(bp) if lane_pair[k] is None]
-        take = min(len(free), len(bucket_pairs) - next_i)
-        if take:
-            lanes = free[:take]
-            new_models = models[next_i:next_i + take]
-            with timing.phase("model packing (host)"):
-                rows = _upload_model(
-                    _model_rows(new_models, la_max, lb_max, dcap), devices[0])
-                model, carry = device_solver.splice_lanes(
-                    model, carry, lanes, rows, step0, n_iter)
-            for j, k in enumerate(lanes):
-                lane_pair[k] = (bucket_pairs[next_i + j], new_models[j])
-            next_i += take
-        if not any(lane_pair):
-            break
-    last_refill = RefillStats(la_max, lb_max, len(bucket_pairs), bp,
-                              dispatches, occupied / max(1, dispatches * bp))
-    log(1, f"   * refill bucket {la_max}x{lb_max}: {len(bucket_pairs)} pairs "
-           f"through {bp} lanes, mean occupancy "
-           f"{last_refill.occupancy:.2f} over {dispatches} dispatches")
-
-
 def _filter_and_build(store, chunk, params: Parameters, la_max: int,
                       lb_max: int, device: torch.device):
     """Edge filter on ``device`` + host model build for one chunk:
@@ -602,7 +478,9 @@ def _model_rows(models, la_max: int, lb_max: int, dcap: int,
     """The padded :class:`BatchModel` rows of ``models`` as numpy arrays,
     ``n_rows`` of them (default one per model); rows beyond the models are
     padding lanes, a 1x1 problem with no dual entries.  Counterpart of
-    ``lara_tpu/solver/device_driver.py:340-373``."""
+    ``lara_tpu/solver/device_driver.py:340-373``.  A plain reference, not
+    an upload path: the tests hold :func:`_unpack_model` of
+    :func:`_packed_buffer` against it."""
     n = n_rows or len(models)
     seq_score = np.zeros((n, la_max, lb_max), np.int32)
     for k, m in enumerate(models):
@@ -741,41 +619,29 @@ def _scan_steps(models, dcap: int) -> int:
                max(1, (dcap - 1).bit_length()))
 
 
-def _upload_model(rows: device_solver.BatchModel, device: torch.device
-                  ) -> device_solver.BatchModel:
-    return device_solver.BatchModel(*(
-        torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in rows))
-
-
 def _pack_models(models, params: Parameters, la_max: int, lb_max: int,
                  device: torch.device, dcap: int = 0, n_dev: int = 1):
     """Pad the chunk's models to :func:`_padded_batch` lanes (to be split
     over ``n_dev`` devices) and upload them: (BatchModel on ``device``,
-    run-scan depth).  One device: one pinned buffer, one upload, unpacked
-    on the device; several: the ten arrays (``raw_path``,
-    ``lara_tpu/solver/device_driver.py:725``).  ``dcap`` defaults to the
-    chunk's quantised dual capacity."""
+    run-scan depth).  One pinned buffer, one upload, unpacked on the
+    device, whatever the device count.  ``dcap`` defaults to the chunk's
+    quantised dual capacity."""
     with timing.phase("model packing (host)"):
         dcap = dcap or _chunk_dcap(models)
-        n = _padded_batch(len(models), n_dev)
-        if n_dev > 1:
-            batch = _upload_model(_model_rows(models, la_max, lb_max, dcap,
-                                              n), device)
-        else:
-            submat = np.asarray(params.score_matrix, np.int32)
-            with timing.phase("model packing: host buffer"):
-                buf = _packed_buffer(models, la_max, lb_max, dcap, n,
-                                     submat.shape[0],
-                                     pin=device.type == "cuda")
-            batch = _unpack_model(buf.to(device, non_blocking=True),
-                                  torch.from_numpy(submat).to(device),
-                                  la_max, lb_max, dcap)
-            if device.type == "cuda":
-                # the upload and the unpack count to this phase, as in
-                # lara_tpu/solver/device_driver.py:820 (block_until_ready)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(device))
-                done.synchronize()
+        submat = np.asarray(params.score_matrix, np.int32)
+        with timing.phase("model packing: host buffer"):
+            buf = _packed_buffer(models, la_max, lb_max, dcap,
+                                 _padded_batch(len(models), n_dev),
+                                 submat.shape[0], pin=device.type == "cuda")
+        batch = _unpack_model(buf.to(device, non_blocking=True),
+                              torch.from_numpy(submat).to(device),
+                              la_max, lb_max, dcap)
+        if device.type == "cuda":
+            # the upload and the unpack count to this phase, as in
+            # lara_tpu/solver/device_driver.py:820 (block_until_ready)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            done.synchronize()
         return batch, _scan_steps(models, dcap)
 
 

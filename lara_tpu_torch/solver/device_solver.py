@@ -41,9 +41,6 @@ since the read is free there.  :func:`solve_batch` reads each dispatch's
 any-lane-active flag one dispatch late, as the JAX package does: the next
 dispatch is queued before the flag comes to the host.  ``LARA_CHUNK`` sets
 the iterations per dispatch (:func:`dispatch_size`).
-
-:func:`splice_lanes` reloads lanes of a live (model, carry) with new pairs:
-the driver's lane refill.
 """
 
 from __future__ import annotations
@@ -600,38 +597,3 @@ def _eager_dispatch(model: BatchModel, carry: _Carry, go, ge, la_max: int,
         carry = _iteration(model, st, carry, go, ge, la_max, lb_max,
                            max_nondecr, lookahead)
     return carry
-
-
-def splice_lanes(model: BatchModel, carry: _Carry, lanes, rows: BatchModel,
-                 step_factor0, num_iterations: int
-                 ) -> Tuple[BatchModel, _Carry]:
-    """Load new pairs into ``lanes`` of a live (model, carry) and reset
-    their solver state to :func:`_init_carry`'s values: the chunk-boundary
-    lane refill, the reference's shared-iterator steal
-    (``subgradient_solver.hpp:286-325``).  Counterpart of
-    ``lara_tpu.solver.device_solver.splice_lanes``.
-
-    ``lanes`` holds distinct lane indices (a sequence or an int tensor) and
-    ``rows`` one :class:`BatchModel` row per lane, padded as the model is
-    (every ``rev`` row an involution, identity on padding).  No fixed
-    splice width and no drop slots: the next dispatch copies the new
-    model and carry into its graph's static buffers, and the graph is not
-    captured again.  Returns a new (model, carry); the inputs are left as
-    they were."""
-    dev = model.la.device
-    lanes = torch.as_tensor(lanes, dtype=torch.long).to(dev)
-    k = lanes.shape[0]
-    for name, arr, row in zip(BatchModel._fields, model, rows):
-        if row.dtype != arr.dtype or tuple(row.shape) != (k,) + tuple(
-                arr.shape[1:]):
-            raise ValueError(
-                f"splice_lanes: rows.{name} is {row.dtype} "
-                f"{tuple(row.shape)}, expected {arr.dtype} "
-                f"{(k,) + tuple(arr.shape[1:])}")
-    new_model = BatchModel(*(arr.index_copy(0, lanes, row.to(dev))
-                             for arr, row in zip(model, rows)))
-    fresh = _init_carry(k, model.dual_l.shape[1], carry.best_partner.shape[1],
-                        step_factor0, num_iterations, dev)
-    new_carry = _Carry(*(arr.index_copy(0, lanes, f)
-                         for arr, f in zip(carry, fresh)))
-    return new_model, new_carry

@@ -68,9 +68,9 @@ class PairModel:
     def seq_score(self) -> np.ndarray:
         """[la, lb] int32 scaled sequence profits, gathered on first read:
         ``trunc(float32(scale) * submat[seq_a, seq_b])`` (``getSeqScore``,
-        ``lagrange.hpp:223-226``).  The one-device packed upload never
-        reads it; the several-device and refill rows, the hybrid, the
-        native baseline and the linear library score do."""
+        ``lagrange.hpp:223-226``).  The packed upload never reads it;
+        ``_model_rows`` (the tests' reference), the hybrid, the native
+        baseline and the linear library score do."""
         mat = self.submat[self.seq_a[:, None], self.seq_b[None, :]]
         return np.trunc(np.float32(self.scale)
                         * mat.astype(np.float32)).astype(np.int32)

@@ -11,8 +11,8 @@ integer), K1 + K2 and K1-grid + K2-grid at the 16S bucket's 1536 x 1536
 included, K3 at ragged
 widths, arbitrary ids, lookahead 1-8, a queue wider than its ring and its
 shared-memory set, and on the solver's own 16S queues; the driver's
-paths (fused, hybrid, lane refill, the cross-chunk pipeline on its CUDA
-streams) and ``splice_lanes`` on the card against the CPU; the dispatch
+paths (fused, hybrid, the cross-chunk pipeline on its CUDA streams) on
+the card against the CPU; the dispatch
 graph (a CUDA graph of one solver iteration, replayed) against the
 eager loop, and a K1 graph replayed after a launch that needs less
 shared memory.  This
@@ -771,40 +771,6 @@ def _solve_library(path, dev, **kw):
     return lib.to_string()
 
 
-def test_refill_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
-    """Lane refill on the card (15 pairs through 4 lanes, dispatches of 15
-    iterations) writes the CPU's bytes and launches K1, K2 and K3, and K4
-    once for each window of models the refill filters."""
-    from lara_tpu_torch.solver import device_driver
-
-    for key in ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_SOLVER"):
-        monkeypatch.delenv(key, raising=False)
-    path = _write_family(tmp_path / "family.dbn", [22], seed=3)
-    cpu = _solve_library(path, torch.device("cpu"), num_iterations=60)
-    monkeypatch.setenv("LARA_REFILL", "1")
-    monkeypatch.setenv("LARA_MAX_BATCH", "4")
-    monkeypatch.setenv("LARA_CHUNK", "15")
-    windows = []
-    filter_and_build = device_driver._filter_and_build
-
-    def spy(store, chunk, *args):
-        windows.append(len(chunk))
-        return filter_and_build(store, chunk, *args)
-
-    monkeypatch.setattr(device_driver, "_filter_and_build", spy)
-    _build.reset_launches()
-    on_card = _solve_library(path, cuda, num_iterations=60)
-    assert {k for k, n in _build.launches.items() if n} == {
-        "gotoh_dp", "gotoh_tb", "matching_rounds", "edge_sweep", "edge_pack",
-        "loop_exit"} | ITERATION
-    assert sum(windows) == 15 and len(windows) > 1
-    assert _build.launches["edge_sweep"] == _build.launches["edge_pack"] \
-        == len(windows)
-    assert device_driver.last_refill.pairs == 15
-    assert device_driver.last_refill.dispatches > 1
-    assert on_card == cpu
-
-
 def test_pipeline_on_card_matches_cpu_serial(cuda, monkeypatch, tmp_path):
     """Three length classes (six buckets) through the cross-chunk pipeline
     (LARA_PIPELINE=1) on the card, its solver and download threads on
@@ -815,9 +781,7 @@ def test_pipeline_on_card_matches_cpu_serial(cuda, monkeypatch, tmp_path):
                 "LARA_MAX_BATCH", "LARA_PIPELINE"):
         monkeypatch.delenv(key, raising=False)
     path = _write_family(tmp_path / "mixed.dbn", [22, 60, 90], seed=4)
-    monkeypatch.setenv("LARA_NO_PIPELINE", "1")
     serial = _solve_library(path, torch.device("cpu"), num_iterations=60)
-    monkeypatch.delenv("LARA_NO_PIPELINE")
     monkeypatch.setenv("LARA_PIPELINE", "1")
     solved = []
     solve_on = device_driver._solve_on
@@ -829,46 +793,6 @@ def test_pipeline_on_card_matches_cpu_serial(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(device_driver, "_solve_on", spy)
     assert _solve_library(path, cuda, num_iterations=60) == serial
     assert len(solved) == 6 and all(solved)
-
-
-def test_splice_lanes_on_card_matches_cpu(cuda):
-    from lara_tpu_torch.solver import device_solver
-
-    rng = np.random.default_rng(8)
-    b, ne, d, la_max = 5, 24, 12, 6
-
-    def model(n):
-        rev = np.broadcast_to(np.arange(d, dtype=np.int32), (n, d)).copy()
-        rev[:, :4] = [1, 0, 3, 2]
-        return device_solver.BatchModel(
-            seq_score=rng.integers(-9, 9, (n, ne)).astype(np.int32),
-            active=rng.random((n, ne)) < 0.5,
-            dual_l=rng.integers(0, ne, (n, d)).astype(np.int32),
-            dual_m=rng.integers(0, ne, (n, d)).astype(np.int32),
-            sscore=rng.integers(0, 9, (n, d)).astype(np.int32), rev=rev,
-            dvalid=rng.random((n, d)) < 0.5,
-            qrank=rev.copy(), la=np.full(n, 4, np.int32),
-            lb=np.full(n, 6, np.int32))
-
-    base, rows = model(b), model(2)
-    carry = device_solver._init_carry(b, d, la_max, np.float32(2.0), 50,
-                                      torch.device("cpu"))
-    carry = carry._replace(dual=torch.from_numpy(
-        rng.integers(-9, 9, (b, d)).astype(np.int32)),
-        lane_active=torch.from_numpy(rng.random(b) < 0.5))
-
-    def splice(dev):
-        out_model, out_carry = device_solver.splice_lanes(
-            device_solver.BatchModel(*(torch.from_numpy(a).to(dev)
-                                       for a in base)),
-            device_solver._Carry(*(t.to(dev) for t in carry)), [4, 1],
-            device_solver.BatchModel(*(torch.from_numpy(a).to(dev)
-                                       for a in rows)),
-            np.float32(1.5), 40)
-        return [t.cpu() for t in (*out_model, *out_carry)]
-
-    for got, want in zip(splice(cuda), splice(torch.device("cpu"))):
-        assert torch.equal(got, want)
 
 
 def test_require_refuses_another_current_card(cuda, monkeypatch):

@@ -44,8 +44,7 @@ CPU = torch.device("cpu")
 LA_MAX = LB_MAX = 32
 STEP0 = np.float32(1.0)
 KNOBS = ("LARA_DP_GRID", "LARA_DP_RESIDENT", "LARA_DCHUNK", "LARA_SOLVER",
-         "LARA_REFILL", "LARA_NO_REFILL", "LARA_PIPELINE", "LARA_NO_PIPELINE",
-         "LARA_SPLIT_SINGLE", "LARA_MAX_BATCH", "LARA_CHUNK")
+         "LARA_PIPELINE", "LARA_SPLIT_SINGLE", "LARA_MAX_BATCH", "LARA_CHUNK")
 
 
 class RecordingGraph:
@@ -202,22 +201,25 @@ def test_graph_resumes_across_dispatches(batch, graph):
 
 
 def test_graph_refill_matches_eager(batch, graph):
-    """Two dispatches around ``splice_lanes`` (lanes 3 and 1 take the
-    pairs of lanes 0 and 2) equal the eager refill: the second dispatch
-    copies the spliced model, its invariants and the carry into the graph's
-    buffers, and nothing is captured again."""
+    """An entry reloads a new model of its key: after a dispatch of one
+    model, a second model of the same shape (lanes 3 and 1 holding the
+    pairs of lanes 0 and 2) from a fresh carry equals the eager loop, as
+    the next chunk of a bucket does; the dispatch copies the new model,
+    its invariants and the carry into the graph's buffers, and nothing is
+    captured again."""
     model, go, ge = batch
     b, d = model.dual_l.shape
     tmodel = convert.model_to_torch(model, CPU)
-    rows = device_solver.BatchModel(*(t[[0, 2]].clone() for t in tmodel))
+    lanes = torch.tensor([3, 1])
+    other = device_solver.BatchModel(*(t.index_copy(0, lanes, t[[0, 2]])
+                                       for t in tmodel))
 
-    def refill(eager):
-        carry = _chunk(tmodel, _carry0(b, d), 5, go, ge, eager=eager)
-        spliced, carry = device_solver.splice_lanes(tmodel, carry, [3, 1],
-                                                    rows, STEP0, 20)
-        return _chunk(spliced, carry, 6, go, ge, eager=eager)
+    def reload(eager):
+        first = _chunk(tmodel, _carry0(b, d), 5, go, ge, eager=eager)
+        return first, _chunk(other, _carry0(b, d), 6, go, ge, eager=eager)
 
-    _assert_carry_equal(refill(False), refill(True))
+    for got, want in zip(reload(False), reload(True)):
+        _assert_carry_equal(got, want)
     (entry,) = dispatch_graph._entries
     assert graph.captures == 1 and entry.graph.replays == 2
     assert torch.equal(entry.model.la,
@@ -478,18 +480,19 @@ def _library(path, devices, **kw):
 
 @pytest.mark.parametrize("env,n_dev", [
     ({}, 1),
-    ({"LARA_REFILL": "1", "LARA_MAX_BATCH": "3", "LARA_CHUNK": "7"}, 1),
+    ({"LARA_MAX_BATCH": "3", "LARA_CHUNK": "7"}, 1),
     ({"LARA_SPLIT_SINGLE": "1", "LARA_PIPELINE": "1"}, 1),
     ({}, 2),
     ({"LARA_DP_GRID": "1"}, 1),
     ({"LARA_DP_RESIDENT": "1"}, 1),
-], ids=["default", "refill", "split-pipelined", "two-shards", "grid",
+], ids=["default", "chunks", "split-pipelined", "two-shards", "grid",
         "resident"])
 def test_driver_paths_run_graphs(tmp_path, monkeypatch, env, n_dev):
-    """Every fused path of ``device_driver`` (chunks, lane refill, the split
-    pipelined through the solver thread, shards on threads, the grid and
-    resident DP plans) solves through the graph and writes the eager
-    loop's bytes; its graphs are gone when the solve ends."""
+    """Every fused path of ``device_driver`` (one chunk, several chunks of
+    one key through one entry, the split pipelined through the solver
+    thread, shards on threads, the grid and resident DP plans) solves
+    through the graph and writes the eager loop's bytes; its graphs are
+    gone when the solve ends."""
     path = write_family(tmp_path, n=5, seed=7)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -504,8 +507,21 @@ def test_driver_paths_run_graphs(tmp_path, monkeypatch, env, n_dev):
         return real(model, carry, key, steps)
 
     monkeypatch.setattr(dispatch_graph, "run", spy)
+    chunks = []
+    prepare = device_driver._prepare
+
+    def spy_prepare(chunk, *rest):
+        chunks.append(len(chunk))
+        return prepare(chunk, *rest)
+
+    monkeypatch.setattr(device_driver, "_prepare", spy_prepare)
     assert _library(path, [CPU] * n_dev, num_iterations=40) == eager
     assert dispatches and RecordingGraph.captures >= 1
+    if env.get("LARA_MAX_BATCH"):
+        # 10 pairs in chunks of 3, 3, 3 and 1: the three of 4 lanes share
+        # a key, and one capture serves all of them
+        assert chunks == [3, 3, 3, 1]
+        assert RecordingGraph.captures == len(set(dispatches)) == 2
     if env.get("LARA_DP_GRID"):
         assert {k.plan.variant for k in dispatches} == {"grid"}
     if env.get("LARA_DP_RESIDENT"):

@@ -1,12 +1,12 @@
 """The port's single-device driver scheduling on the CPU (``LARA_PLATFORM=cpu``).
 
-Lane refill, the cross-chunk pipeline and its depth-2 drain, the forced
-single-bucket split, chunking, the device byte budget's gates,
-``LARA_CHUNK`` and ``LARA_PROFILE`` may change when work runs, never the
-results: every case must write the library bytes of the JAX device backend
-and of the scalar mirror, with zero tolerance.  Spies show that each case
-took the branch it names.  ``splice_lanes`` and ``_model_rows`` are held
-against the JAX package's on the same numpy inputs.
+The cross-chunk pipeline and its depth-2 drain, the forced single-bucket
+split, chunking, the device byte budget's gates, ``LARA_CHUNK`` and
+``LARA_PROFILE`` may change when work runs, never the results: every case
+must write the library bytes of the JAX device backend and of the scalar
+mirror, with zero tolerance.  Spies show that each case took the branch it
+names.  ``_model_rows`` is held against the JAX package's on the same
+numpy inputs.
 """
 
 import functools
@@ -18,20 +18,18 @@ import numpy as np
 import pytest
 import torch
 
-from lara_tpu_torch import convert
 from lara_tpu_torch.app import enumerate_pairs
 from lara_tpu_torch.io.records import InputStorage
 from lara_tpu_torch.io.writers import OutputLibrary
 from lara_tpu_torch.params import Parameters
 from lara_tpu_torch.solver import device_driver, device_solver
-from lara_tpu_torch.utils import timing
 
 from tests.test_device_solver import run_backend, write_family
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-KNOBS = ("LARA_REFILL", "LARA_NO_REFILL", "LARA_PIPELINE", "LARA_NO_PIPELINE",
-         "LARA_SPLIT_SINGLE", "LARA_MAX_BATCH", "LARA_CHUNK", "LARA_PROFILE")
+KNOBS = ("LARA_PIPELINE", "LARA_SPLIT_SINGLE", "LARA_MAX_BATCH", "LARA_CHUNK",
+         "LARA_PROFILE")
 
 
 @pytest.fixture(autouse=True)
@@ -112,47 +110,16 @@ def write_mixed(tmp_path):
     return str(path)
 
 
-def test_refill_matches_jax_and_mirror(tmp_path, monkeypatch):
-    """15 pairs through 4 lanes in dispatches of 15 iterations: converged
-    lanes take the waiting pairs."""
-    path = write_family(tmp_path, n=6, seed=13)
-    monkeypatch.setenv("LARA_MAX_BATCH", "4")
-    monkeypatch.setenv("LARA_CHUNK", "15")
-    monkeypatch.setenv("LARA_REFILL", "1")
-    monkeypatch.setenv("LARA_NO_REFILL", "1")
-    splices = []
-    spy(monkeypatch, device_solver, "splice_lanes",
-        lambda model, carry, lanes, *rest: splices.append(list(lanes)))
-    chunked = solve_port(path, num_iterations=60)
-    assert not splices
-    monkeypatch.delenv("LARA_NO_REFILL")
-    timing.reset()
-    refill = solve_port(path, num_iterations=60)
-    assert refill == chunked
-    assert sum(len(lanes) for lanes in splices) == 15 - 4
-    stats = device_driver.last_refill
-    assert (stats.pairs, stats.lanes) == (15, 4)
-    assert 0 < stats.occupancy <= 1 and stats.dispatches >= 2
-    # the solve phase times the dispatches alone; each harvest is a download
-    assert timing._COUNTS["subgradient solve (device)"] == stats.dispatches
-    assert 1 <= timing._COUNTS["result download (host)"] <= stats.dispatches
-    assert_jax_and_mirror(refill, path, num_iterations=60)
-
-
 def test_pipeline_matches_serial(tmp_path, monkeypatch):
     """Three buckets pipelined under LARA_PIPELINE=1 (depth 2, drained
-    mid-loop) against the serial default and LARA_NO_PIPELINE=1, which
-    cancels LARA_PIPELINE."""
+    mid-loop) against the serial default."""
     path = write_mixed(tmp_path)
     solved = []
     spy(monkeypatch, device_driver, "_solve_on",
         lambda stream, prep, params: solved.append(len(prep.chunk)))
     serial = solve_port(path, num_iterations=40)
-    monkeypatch.setenv("LARA_PIPELINE", "1")
-    monkeypatch.setenv("LARA_NO_PIPELINE", "1")
-    assert solve_port(path, num_iterations=40) == serial
     assert solved == []
-    monkeypatch.delenv("LARA_NO_PIPELINE")
+    monkeypatch.setenv("LARA_PIPELINE", "1")
     pipelined = solve_port(path, num_iterations=40)
     assert pipelined == serial
     store = InputStorage(in_file=path)
@@ -190,7 +157,7 @@ def test_split_rules():
         os.environ.update(env)
         try:
             plan = device_driver._split_single(
-                [device_driver._Task("chunk", la, la, list(range(n)))])
+                [device_driver._Task(la, la, list(range(n)))])
         finally:
             for key in env:
                 del os.environ[key]
@@ -201,7 +168,6 @@ def test_split_rules():
     assert tasks(28, 96, forced) == [14, 14]
     assert tasks(28, 1536, forced) == [14, 14]
     assert tasks(28, 1536, {"LARA_SPLIT_SINGLE": "0"}) == [28]
-    assert tasks(28, 1536, {**forced, "LARA_NO_PIPELINE": "1"}) == [28]
     assert tasks(9, 1536, forced) == [9]    # 5 + 4 pad to 8 + 4
     assert tasks(3, 1536, forced) == [3]
     assert tasks(17, 1536, forced) == [17]  # 9 + 8 pad to 16 + 8
@@ -209,15 +175,16 @@ def test_split_rules():
 
 @pytest.mark.parametrize("env", [
     {},                                           # one chunk
-    {"LARA_NO_PIPELINE": "1"},                    # serial chunks
+    {"LARA_MAX_BATCH": "3"},                      # serial chunks
     {"LARA_SPLIT_SINGLE": "1", "LARA_PIPELINE": "1"},  # forced split
     {"LARA_MAX_BATCH": "3", "LARA_PIPELINE": "1"},     # chunking + pipeline
-    {"LARA_MAX_BATCH": "4", "LARA_REFILL": "1"},  # lane refill
+    {"LARA_MAX_BATCH": "4", "LARA_CHUNK": "7"},   # short dispatches
 ], ids=["default", "no-pipeline", "split", "max-batch-3", "refill"])
 def test_scheduler_knobs_match_mirror(tmp_path, monkeypatch, env):
-    """The five scheduler configurations of the JAX package's
-    scheduler-equivalence test write the mirror's bytes (and the JAX
-    device backend's)."""
+    """Five scheduler configurations, under the case names of the JAX
+    package's scheduler-equivalence test, write the mirror's bytes (and
+    the JAX device backend's).  The port has no lane refill: its
+    ``refill`` case runs serial chunks in short dispatches."""
     path = write_family(tmp_path, n=5, seed=41)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -226,24 +193,25 @@ def test_scheduler_knobs_match_mirror(tmp_path, monkeypatch, env):
 
 
 @pytest.mark.parametrize("env", [
-    {"LARA_NO_PIPELINE": "1"},
-    {"LARA_REFILL": "1", "LARA_MAX_BATCH": "4"},
+    {},
+    {"LARA_PIPELINE": "1", "LARA_MAX_BATCH": "3"},
 ], ids=["chunk", "refill-fallback"])
 def test_halving_guard(tmp_path, monkeypatch, env):
     """A chunk whose estimate is above twice the device budget is solved in
-    halves, down to single pairs when the budget is tiny; a refill bucket
-    whose batch is above it falls back to plain chunks (which halve)."""
+    halves, down to single pairs when the budget is tiny; under the
+    pipeline, a chunk above the budget leaves it (``_prepare_chunk`` hands
+    its models back) and is solved in halves the same way."""
     path = write_family(tmp_path, n=4, seed=3)
     monkeypatch.setattr(device_driver, "DEVICE_BUDGET", 1)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    packed, splices = [], []
+    packed, solved = [], []
     spy(monkeypatch, device_driver, "_prepare",
         lambda chunk, *rest: packed.append(len(chunk)))
-    spy(monkeypatch, device_solver, "splice_lanes",
-        lambda *args: splices.append(args))
+    spy(monkeypatch, device_driver, "_solve_on",
+        lambda *args: solved.append(args))
     port = solve_port(path, num_iterations=60)
-    assert packed == [1] * 6 and not splices
+    assert packed == [1] * 6 and not solved
     assert_jax_and_mirror(port, path, num_iterations=60)
 
 
@@ -295,74 +263,8 @@ def _random_model(rng, b, la_max, lb_max, d):
         lb=rng.integers(1, lb_max + 1, b).astype(np.int32))
 
 
-def _random_carry(rng, b, d, la_max):
-    return device_solver._Carry(
-        dual=rng.integers(-50, 50, (b, d)).astype(np.int32),
-        dual_at_queue=rng.integers(-50, 50, (b, d)).astype(np.int32),
-        step_factor=rng.random(b).astype(np.float32),
-        nondecr=rng.integers(0, 9, b).astype(np.int32),
-        remaining=rng.integers(0, 90, b).astype(np.int32),
-        lane_active=rng.random(b) < 0.5,
-        best_lower=rng.integers(-900, 0, b).astype(np.int32),
-        best_upper=rng.integers(0, 900, b).astype(np.int32),
-        best_score=rng.integers(-900, 900, b).astype(np.int32),
-        best_partner=rng.integers(-1, 9, (b, la_max)).astype(np.int32),
-        best_nlines=rng.integers(0, 9, b).astype(np.int32),
-        best_matched=rng.random((b, la_max)) < 0.5,
-        iterations=rng.integers(0, 90, b).astype(np.int32))
-
-
-def test_splice_lanes_matches_jax():
-    """The port's splice of lanes 5, 0 and 2 against JAX's, which takes a
-    fixed-width lane vector with out-of-range drop slots."""
-    import jax.numpy as jnp
-
-    from lara_tpu.solver import device_solver as jax_solver
-
-    rng = np.random.default_rng(5)
-    b, la_max, lb_max, d = 6, 7, 5, 16
-    model = _random_model(rng, b, la_max, lb_max, d)
-    carry = _random_carry(rng, b, d, la_max)
-    rows = _random_model(rng, 3, la_max, lb_max, d)
-    lanes = [5, 0, 2]
-    step0, n_iter = np.float32(2.5), 77
-
-    width = 8  # JAX's compiled width: three lanes and five drop slots
-    lane_idx = np.full(width, b, np.int32)
-    lane_idx[:3] = lanes
-    padded_rows = device_solver.BatchModel(*(
-        np.concatenate([a, np.zeros((width - 3,) + a.shape[1:], a.dtype)])
-        for a in rows))
-    want_model, want_carry = jax_solver.splice_lanes(
-        jax_solver.BatchModel(*(jnp.asarray(a) for a in model)),
-        jax_solver._Carry(*(jnp.asarray(a) for a in carry)),
-        jnp.asarray(lane_idx),
-        jax_solver.BatchModel(*(jnp.asarray(a) for a in padded_rows)),
-        step0, np.int32(n_iter))
-
-    model_t = convert.model_to_torch(model, CPU)
-    carry_t = convert.carry_to_torch(carry, CPU)
-    got_model, got_carry = device_solver.splice_lanes(
-        model_t, carry_t, lanes, convert.model_to_torch(rows, CPU), step0,
-        n_iter)
-    for name, got, want in zip(device_solver.BatchModel._fields, got_model,
-                               want_model):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want), name)
-    for name, got, want in zip(device_solver._Carry._fields,
-                               convert.carry_to_numpy(got_carry),
-                               convert.carry_to_numpy(want_carry)):
-        np.testing.assert_array_equal(got, want, name)
-    # the inputs are left as they were
-    for got, want in zip(model_t, model):
-        np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(ValueError, match="rows.seq_score"):
-        device_solver.splice_lanes(
-            model_t, carry_t, lanes[:2], convert.model_to_torch(rows, CPU),
-            step0, n_iter)
-
-
 def test_model_rows_match_jax(tmp_path):
-    """The port's padded model rows (shared by packing and refill) equal
+    """The port's padded model rows (the tests' plain reference) equal
     the JAX driver's ``_model_rows``, padding lanes included, and every
     rev row is an involution."""
     from lara_tpu.solver import device_driver as jax_driver

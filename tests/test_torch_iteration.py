@@ -8,7 +8,7 @@ versions, ``device_solver.head_plain``, ``lines_plain`` and
 against the JAX package's ``solve_batch_chunk``; KI-head's run top against
 the JAX package's ``_run_top`` and a window-by-window reference; the
 persistent PSSM grid against the ``placed`` construction it replaces, also
-after ``splice_lanes`` loads new models into a dispatch graph's entry; and
+after a dispatch graph's entry reloads a new model of its key; and
 KI-tail's lane cases against a float32 reference in the reference's
 operation order.  Zero tolerance throughout.  ``tests/test_torch_cuda.py``
 holds the kernels against these plain versions on a card.
@@ -206,8 +206,9 @@ def test_pssm_grid_is_the_placed_construction(seed, hub):
 
 def test_pssm_grid_follows_spliced_models(monkeypatch):
     """A dispatch graph's entry keeps the grid as an invariant of its
-    model: after ``splice_lanes`` puts new models in two lanes, the next
-    dispatch's KI-head leaves the ``placed`` construction of the new
+    model: when the next dispatch of its key brings a new model (two lanes
+    holding new pairs) and a fresh carry, as the next chunk of a bucket
+    does, its KI-head leaves the ``placed`` construction of the new
     model."""
     monkeypatch.setattr(dispatch_graph, "Graph", RecordingGraph)
     heads = []
@@ -225,13 +226,12 @@ def test_pssm_grid_follows_spliced_models(monkeypatch):
     go, ge = -49152, -16384
     out = device_solver.solve_batch_chunk(model, fresh, go, ge, 30, 26, 3, 5,
                                           5)
-    lanes = [0, 2]
-    splice_rows = device_solver.BatchModel(*(
-        torch.from_numpy(new_rows[f][lanes]) for f in
-        device_solver.BatchModel._fields))
-    model2, carry2 = device_solver.splice_lanes(model, out, lanes,
-                                                splice_rows,
-                                                np.float32(1.0), 50)
+    assert out.iterations.max() > 0
+    lanes = torch.tensor([0, 2])
+    model2 = device_solver.BatchModel(*(
+        arr.index_copy(0, lanes, torch.from_numpy(new_rows[f])[lanes])
+        for f, arr in zip(device_solver.BatchModel._fields, model)))
+    carry2 = device_solver._init_carry(4, 200, 30, np.float32(1.0), 50, CPU)
     device_solver.solve_batch_chunk(model2, carry2, go, ge, 30, 26, 1, 5, 5)
     (entry,) = dispatch_graph._entries
     st, head = heads[-1]

@@ -9,8 +9,8 @@ card; these tests hold NumPy models of the two decompositions, made the
 way the kernels decompose, against the plain versions
 (``device_solver.head_plain``, ``lines_plain``) and the JAX package's
 ``_run_top`` / ``_same_segment_masks``; the packed mask against both
-packages' masks, also after ``splice_lanes``; and the wrappers' tile and
-cluster choosers.  Zero tolerance throughout.  ``tests/test_torch_cuda.py``
+packages' masks, also after an entry reloads a new model; and the
+wrappers' tile and cluster choosers.  Zero tolerance throughout.  ``tests/test_torch_cuda.py``
 holds the kernels themselves on a card.
 """
 
@@ -215,8 +215,9 @@ def test_packed_mask_is_both_packages_masks(seed, d, hub, scan_steps):
 
 def test_packed_mask_follows_spliced_models(monkeypatch):
     """A dispatch graph's entry keeps the packed mask as an invariant of its
-    model: after ``splice_lanes`` puts new models in two lanes, the next
-    dispatch's KI-head reads the mask of the new model, in place."""
+    model: when the next dispatch of its key brings a new model (two lanes
+    holding new pairs) and a fresh carry, as the next chunk of a bucket
+    does, its KI-head reads the mask of the new model, in place."""
     monkeypatch.setattr(dispatch_graph, "Graph", RecordingGraph)
     seen = []
     real = device_solver.head_plain
@@ -231,18 +232,16 @@ def test_packed_mask_follows_spliced_models(monkeypatch):
     model = iteration_tensors(case, CPU)[0]
     fresh = device_solver._init_carry(4, 200, 30, np.float32(1.0), 50, CPU)
     go, ge = -49152, -16384
-    out = device_solver.solve_batch_chunk(model, fresh, go, ge, 30, 26, 3, 5,
-                                          5, 3)
+    device_solver.solve_batch_chunk(model, fresh, go, ge, 30, 26, 3, 5, 5, 3)
     (entry,) = dispatch_graph._entries
     mask_before = entry.st.seg_mask
     old = mask_before.clone()
     lanes = [0, 2]
-    splice_rows = device_solver.BatchModel(*(
-        torch.from_numpy(new_rows[f][lanes]) for f in
-        device_solver.BatchModel._fields))
-    model2, carry2 = device_solver.splice_lanes(model, out, lanes,
-                                                splice_rows,
-                                                np.float32(1.0), 50)
+    model2 = device_solver.BatchModel(*(
+        arr.index_copy(0, torch.tensor(lanes),
+                       torch.from_numpy(new_rows[f])[lanes])
+        for f, arr in zip(device_solver.BatchModel._fields, model)))
+    carry2 = device_solver._init_carry(4, 200, 30, np.float32(1.0), 50, CPU)
     device_solver.solve_batch_chunk(model2, carry2, go, ge, 30, 26, 1, 5, 5,
                                     3)
     (entry,) = dispatch_graph._entries

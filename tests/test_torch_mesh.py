@@ -46,7 +46,7 @@ PROCESS_TIMEOUT = 120
 
 @pytest.fixture(autouse=True)
 def single_host(monkeypatch):
-    for key in HOST_VARS + ("LARA_SPLIT_SINGLE", "LARA_NO_PIPELINE"):
+    for key in HOST_VARS + ("LARA_SPLIT_SINGLE",):
         monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("LARA_PLATFORM", "cpu")
     yield
@@ -159,7 +159,7 @@ def test_split_skips_where_the_device_floor_costs_more(monkeypatch):
 
     def halves(n, n_dev):
         plan = device_driver._split_single(
-            [device_driver._Task("chunk", 96, 96, list(range(n)))], n_dev)
+            [device_driver._Task(96, 96, list(range(n)))], n_dev)
         return [len(t.pairs) for t in plan]
 
     assert device_driver._padded_batch(6, 8) == 8
@@ -171,24 +171,6 @@ def test_split_skips_where_the_device_floor_costs_more(monkeypatch):
     assert halves(28, 32) == [28]   # 32 lanes unsplit, 32 + 32 split
     assert halves(28, 1) == [14, 14]
     assert halves(9, 2) == [9]      # 5 + 4 pad to 8 + 4
-
-
-def test_refill_pads_to_the_device_floor(tmp_path, monkeypatch):
-    """Lane refill runs on the first device over a batch floored at the
-    device count, as JAX's refill packs it (``_pack_models``), and writes
-    the mirror's bytes."""
-    path = write_family(tmp_path, n=5, seed=41)
-    monkeypatch.setenv("LARA_REFILL", "1")
-    monkeypatch.setenv("LARA_MAX_BATCH", "3")
-    device_driver.last_refill = None
-    lib = tmp_path / "port.lib"
-    app.run(Parameters(in_file=path, num_iterations=50, out_file=str(lib)),
-            devices=[CPU] * 8)
-    assert device_driver.last_refill.lanes == 8
-    ref = tmp_path / "ref.lib"
-    assert jax_cli.main(["-i", path, "-n", "50", "-w", str(ref),
-                         "--backend", "reference"]) == 0
-    assert lib.read_text() == ref.read_text()
 
 
 def test_distributed_init_reads_the_jax_variables(monkeypatch):

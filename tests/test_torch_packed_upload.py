@@ -1,14 +1,16 @@
 """The packed one-buffer model upload against the JAX driver's.
 
-On one device ``device_driver._pack_models`` uploads a chunk as one int32
-buffer in the JAX driver's layout (``lara_tpu/solver/device_driver.py:
-776-806``) and rebuilds the ``BatchModel`` on the device
-(``_unpack_model``).  Both layouts are held here, ``packed15`` on a tRNA
+On any number of devices ``device_driver._pack_models`` uploads a chunk as
+one int32 buffer in the JAX driver's one-device layout
+(``lara_tpu/solver/device_driver.py:776-806``) and rebuilds the
+``BatchModel`` on the first device (``_unpack_model``).  Both layouts are
+held here, ``packed15`` on a tRNA
 chunk and ``packed_seq`` on a 200x200 chunk (``la_max * lb_max > 32768``):
 the port's buffer equals the JAX driver's word for word (its one-device
 branch, reached by giving JAX one local device inside the test), the JAX
 ``_get_unpack_model`` of the port's buffer equals the port's unpack field
-by field, padding cells included, and a solve from the unpacked model
+by field, padding cells included, a batch floored at a device count pads
+with the raw rows' padding lanes, and a solve from the unpacked model
 equals a solve from the raw rows of ``_model_rows`` (zero tolerance).
 """
 
@@ -132,6 +134,28 @@ def test_unpack_equals_raw_rows(chunks, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
+def test_pack_models_pads_to_the_device_floor(chunks, mode):
+    """Over more devices than the chunk has lanes, ``_pack_models`` floors
+    the batch at the device count (one lane per device): the lanes beyond
+    the chunk's power of two are the raw rows' padding lanes, 1x1 problems
+    with no dual entries and a zero grid."""
+    chunk = chunks[mode]
+    n_dev = 2 * chunk.n
+    got, _ = device_driver._pack_models(
+        chunk.models, chunk.params, chunk.pad, chunk.pad, CPU, chunk.dcap,
+        n_dev)
+    raw = device_driver._model_rows(chunk.models, chunk.pad, chunk.pad,
+                                    chunk.dcap, n_dev)
+    assert got.la.shape[0] == n_dev
+    for name, g, w in zip(device_solver.BatchModel._fields, got, raw):
+        if name != "seq_score":
+            np.testing.assert_array_equal(g.numpy(), w, name)
+    np.testing.assert_array_equal(got.seq_score[len(chunk.models):].numpy(),
+                                  raw.seq_score[len(chunk.models):])
+    assert (got.la[len(chunk.models):] == 1).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_packed_solve_equals_raw_solve(chunks, mode):
     """``solve_batch`` from the packed upload and from the raw rows gives
     the same result in every field (no result reads the padding cells,
@@ -139,8 +163,10 @@ def test_packed_solve_equals_raw_solve(chunks, mode):
     chunk = chunks[mode]
     packed, scan_steps = device_driver._pack_models(
         chunk.models, chunk.params, chunk.pad, chunk.pad, CPU, chunk.dcap)
-    raw = device_driver._upload_model(device_driver._model_rows(
-        chunk.models, chunk.pad, chunk.pad, chunk.dcap, chunk.n), CPU)
+    raw = device_solver.BatchModel(*(
+        torch.from_numpy(np.ascontiguousarray(x)) for x in
+        device_driver._model_rows(chunk.models, chunk.pad, chunk.pad,
+                                  chunk.dcap, chunk.n)))
     assert not torch.equal(packed.seq_score, raw.seq_score)
     p = chunk.params
     args = (int(p.gap_open_int), int(p.gap_extend_int),

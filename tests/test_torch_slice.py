@@ -5,8 +5,7 @@ device backend and the scalar mirror: on the ``write_family`` families of
 ``tests/test_device_solver.py`` in binary, ``-l`` linear and ``-b auto``
 modes, and on the golden configs of ``tests/test_golden_configs.py``
 (frozen mirror output that the JAX device backend is locked to).  The
-host-matching modes must reach the hybrid backend, and ``LARA_REFILL`` the
-lane refill.  The port must not load JAX and must not fall back to the CPU
+host-matching modes must reach the hybrid backend.  The port must not load JAX and must not fall back to the CPU
 when CUDA is missing.  The driver's scheduling knobs are held in
 ``tests/test_torch_driver.py``.
 """
@@ -221,24 +220,3 @@ def test_host_matching_modes_route_to_hybrid(tmp_path, monkeypatch, kw, env):
     port = run_port(path, **kw)
     assert buckets, "the hybrid backend was not used"
     assert port == run_backend(path, "reference", **kw)
-
-
-def test_refill_routes_to_refill(tmp_path, monkeypatch):
-    """LARA_REFILL=1 on a bucket wider than its batch runs the lane refill
-    (it raised before the refill was ported) and writes the mirror's
-    bytes."""
-    monkeypatch.setenv("LARA_REFILL", "1")
-    monkeypatch.setenv("LARA_MAX_BATCH", "2")
-    refills = []
-    run_refill = device_driver._run_refill
-
-    def spy(store, task, *args):
-        refills.append((len(task.pairs), task.window))
-        return run_refill(store, task, *args)
-
-    monkeypatch.setattr(device_driver, "_run_refill", spy)
-    path = write_family(tmp_path, n=3, seed=1)
-    port = run_port(path, num_iterations=40)
-    assert refills == [(3, 2)]
-    assert device_driver.last_refill.pairs == 3
-    assert port == run_backend(path, "reference", num_iterations=40)

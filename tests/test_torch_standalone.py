@@ -4,8 +4,8 @@
 (parameters, input and output, scoring, interaction models, the scalar
 mirror, the native libraries, the MSA, the structure predictor) and
 ``chip_smoke.py`` its own workloads (``lara_tpu_torch.workloads``).  An
-AST scan of every port module (its ``benchmark`` subpackage included),
-``chip_smoke.py`` and ``edge_filter_ab.py`` finds no import of ``jax``,
+AST scan of every port module (its ``benchmark`` subpackage included) and
+``chip_smoke.py`` finds no import of ``jax``,
 ``lara_tpu``, ``bench`` or the repository's ``benchmark`` folder; a
 subprocess that imports
 every port module and runs the CLI on every path loads neither JAX nor
@@ -177,8 +177,7 @@ def _foreign_imports(path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [os.path.join(REPO, name)
-                          for name in ("chip_smoke.py", "edge_filter_ab.py")],
+    "path", PORT_FILES + [os.path.join(REPO, "chip_smoke.py")],
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_the_jax_package(path):
     assert _foreign_imports(path) == []
