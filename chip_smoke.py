@@ -18,7 +18,9 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    K-res (K1's sweep and K2's walk in one CTA per pair, the codes in
    shared memory) at the first two and at a ragged B=40 333x150, K1 +
    K2 at a ragged non-square B=40 333x700; K1 both in the
-   wrapper's clusters of CTAs per pair and at one CTA per pair; K2 as the
+   wrapper's clusters of CTAs per pair and at one CTA per pair, and alone
+   on a lone 16S pair (B=1 1536x1536) on 4, 8 and 16 CTAs per pair in
+   turns, with the time a step; K2 as the
    main path runs it, after a K1 that has just written its codes (the
    pair's time less K1's); K3 (greedy matching) at the main path's B=128
    and B=32 with W=512 columns and B=32 W=1536 S=1536, and at B=128 with
@@ -73,7 +75,11 @@ card, no JAX, nothing of the JAX package).  Phases, each fatal on failure:
    (one iteration of the 250 dispatched, its solve phase beside the
    capture), the hybrid backend at ``-m 0`` on tRNA, the
    hybrid at ``-m 12`` on ~300 nt under ``LARA_DP_RESIDENT=1``, and the
-   fused path under ``LARA_DP_GRID=1`` on tRNA; and KB's own entry
+   fused path under ``LARA_DP_GRID=1`` on tRNA, and the fused path on a
+   lone 16S pair; the tRNA, ~300 nt, 16S and lone-pair runs print the
+   CTAs per pair that K1 and K4's sweep launched on (``_build.clusters``),
+   which must be the one placement the chunk's lanes give (1, 4, 4 and
+   spread to the wrapper's choice for K1); and KB's own entry
    point, ``lara_tpu_torch.benchmark.profile_wavefront_layout.main``, which
    prints the us per step of each layout by the slope and must launch KB
    alone.  Every pair must equal the
@@ -387,6 +393,82 @@ def _dp_phase(b, la_max, lb_max, seed, dev, stats, grid=True,
           f"{k1_ms:.4f} ms, 1 CTA per pair {k1_one:.4f} ms; K1 + K2 "
           f"{k1_ms + k2_ms:.4f} ms; K2 alone on warm codes {k2_alone:.4f} ms"
           + (f"; K-res on {warps} warps per pair" if resident else ""))
+
+
+def _spread_phase(dev, stats, reps=50):
+    """K1 alone on a lone 16S pair, B=1 1536x1536, where the wrapper
+    spreads the pair's 49 strips over a cluster of up to 16 CTAs: on 4
+    (the most a full card gives a pair), 8 and 16 CTAs per pair, and on the
+    wrapper's choice, each exact against the plain forward, timed in turns
+    (4, 8, 16, 16, 8, 4) beside the bound and the time a step.  A step is
+    one of the ~3,490 of the strip model: strip k starts 40 steps (32 lanes
+    and one block of 8) after strip k-1 and runs lb + 32 steps."""
+    import torch
+
+    from lara_tpu_torch.ops import gotoh, gotoh_cuda
+    from lara_tpu_torch.types import PSSM_INIT
+
+    go, ge = -49152, -16384
+    n = 1536
+    rng = np.random.default_rng(12)
+    pssm = rng.integers(-9000, 9000, (1, n, n)).astype(np.int32)
+    pssm[rng.random(pssm.shape) < 0.3] = PSSM_INIT
+    pssm_t = torch.from_numpy(pssm).to(dev)
+    la_t = lb_t = torch.full((1,), n, dtype=torch.int32, device=dev)
+    chosen = gotoh_cuda.cluster_size(1, n, n, dev)
+    sizes = sorted({4, 8, 16, chosen})
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge)
+    d_idx = torch.arange(2 * n + 1, device=dev)[None, :, None]
+    i_idx = torch.arange(n + 1, device=dev)[None, None, :]
+    valid = (d_idx >= i_idx) & (d_idx - i_idx <= n)
+    err = 0
+    for c in sizes:
+        dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, go, ge,
+                                                 cluster=c)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(finals_k, finals_p),
+                  _max_abs_err(torch.where(valid, dirs_k, 0),
+                               torch.where(valid, dirs_p, 0)))
+    if err:
+        raise AssertionError(f"K1 on a lone 16S pair disagrees with the "
+                             f"plain version: {err}")
+    times = {c: [] for c in sizes}
+    for c in sizes + sizes[::-1]:
+        times[c].append(_time_ms(lambda: gotoh_cuda.dp_forward(
+            pssm_t, la_t, lb_t, go, ge, cluster=c), reps))
+    plain_ms = _time_ms(lambda: gotoh.dp_forward(pssm_t, la_t, lb_t, go, ge),
+                        2)
+    bound_ms, bound_by = _bound(4.0 * n * n + (n + 1) ** 2 + 12,
+                                DP_OPS_PER_CELL * (n + 1) ** 2)
+    strips = (n + 32) // 32
+    steps = 40 * (strips - 1) + n + 32
+    for c in sizes:
+        ms = float(np.mean(times[c]))
+        print(f"  gotoh_dp         B=1 {n}x{n} on {c:2d} CTAs per pair"
+              f"{' (the wrapper)' if c == chosen else ''}: "
+              f"{', '.join(f'{t:.4f}' for t in times[c])} ms, mean "
+              f"{ms:.4f} ms, {1e6 * ms / steps:.1f} ns a step of {steps}; "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+    stats["gotoh_dp"].append((f"B=1 {n}x{n} ({chosen} CTAs)", err,
+                              float(np.mean(times[chosen])), plain_ms,
+                              bound_ms, bound_by))
+
+
+def _placements(name, k1, sweep):
+    """The CTAs per pair of the run just made (``_build.clusters``): K1
+    launched on ``k1`` CTAs per pair and K4's sweep on ``sweep``, each
+    on that placement alone."""
+    from lara_tpu_torch import _build
+
+    got = {}
+    for (kernel, ctas), n in sorted(_build.clusters.items()):
+        got.setdefault(kernel, {})[ctas] = n
+    print(f"    CTAs per pair (launches): {got}")
+    for kernel, ctas in (("gotoh_dp", k1), ("edge_sweep", sweep)):
+        if set(got.get(kernel, {})) != {ctas}:
+            raise AssertionError(f"{name}: {kernel} launched on "
+                                 f"{got.get(kernel)} CTAs per pair, "
+                                 f"expected {ctas} alone")
 
 
 def _forward_then_walk(forward, walk):
@@ -1138,6 +1220,7 @@ def _long_path(family, dev, tmp, expect, k4_ms):
     with _pipelined_chunks() as solved:
         default = _main_path(*family, dev, tmp, expect,
                              native_threads=os.cpu_count() or 1)
+        _placements("16S default", 4, 2)  # 32 and 64 lanes on 132 SMs
         _exact_launches("16S default", default[0], default[3].results, 1)
         filter_s = timing.snapshot()["edge filter (device)"]
         print(f"    16S edge filter (device) phase {filter_s:.3f} s for one "
@@ -2235,6 +2318,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from lara_tpu_torch import _build
+    from lara_tpu_torch.ops import gotoh_cuda
     from lara_tpu_torch.workloads import (make_family, make_long_family,
                                           without_structure)
 
@@ -2277,6 +2361,8 @@ def main() -> int:
     # per CTA, K2's and K2-grid's walks of up to 3072 steps (K-res does
     # not fit)
     _dp_phase(32, 1536, 1536, 3, dev, stats, resident=False)
+    # a lone 16S pair: K1 spread over a cluster of up to 16 CTAs
+    _spread_phase(dev, stats)
     # ragged and non-square: la_max not a multiple of 32, 32 < B < 132
     _dp_phase(40, 333, 700, 4, dev, stats, grid=False, resident=False)
     # the same, narrow enough for K-res (11 warps per pair)
@@ -2336,8 +2422,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         print("main path: lara_tpu_torch.app.run, default parameters:")
         one = {}
-        for label, records in (trna, rrna):
+        # the chunks fill the card: K1 on 1 CTA a pair at tRNA's 128
+        # lanes, 4 at ~300 nt's 32; K4's sweep on 1 and 2 (132 SMs)
+        for (label, records), ctas in zip((trna, rrna), ((1, 1), (4, 2))):
             one[label] = _main_path(label, records, dev, tmp, fused)
+            _placements(label, *ctas)
             _exact_launches(label, one[label][0], one[label][3].results, 1)
             count(one[label][0])
         print("the loop exit on a family whose lanes converge at once:")
@@ -2345,6 +2434,12 @@ def main() -> int:
         print("16S, one 1536x1536 bucket:")
         one[long16[0]] = _long_path(long16, dev, tmp, fused, k4_16s)
         count(one[long16[0]][0])
+        print("a lone 16S pair (B=1), K1 and K4's sweep spread:")
+        pair = ("16S-1530nt-pair", long16[1][:2])
+        count(_main_path(*pair, dev, tmp, fused)[0])
+        _placements(pair[0], gotoh_cuda.cluster_size(1, 1536, 1536, dev),
+                    gotoh_cuda.cluster_size(2, 1536, 1536, dev,
+                                            gotoh_cuda.K4_SWEEP))
         print("graphed and eager dispatches in turns:")
         for family in (trna, long16):
             _turns_path(family, dev, tmp, fused, one[family[0]])

@@ -21,6 +21,11 @@ graph loops over its capture on the card (a fused dispatch's WHILE node),
 the iterations run are a count on the card: :func:`add_counted` copies it
 to the host without waiting, and :func:`settle` adds the record that many
 times once the copy has landed.
+
+``clusters`` counts the launches of K1's clustered kernels (K1, K1-grid,
+K4's sweep) by their CTAs per pair, ``(kernel name, CTAs) -> launches``,
+through the same records and replays: :func:`count` with a cluster size
+counts both.
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ launches = {"gotoh_dp": 0, "gotoh_tb": 0, "matching_rounds": 0,
             "edge_sweep": 0, "edge_pack": 0, "wavefront_chain": 0,
             "loop_exit": 0, "iteration_head": 0, "iteration_lines": 0,
             "iteration_tail": 0}
+#: launches of the clustered kernels by CTAs per pair, (name, CTAs) ->
+#: launches, since the last :func:`reset_launches`
+clusters = {}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -67,19 +75,33 @@ class KernelLaunchError(RuntimeError):
 def reset_launches() -> None:
     with _count_lock:
         _unsettled.clear()
+        clusters.clear()
         for name in launches:
             launches[name] = 0
 
 
-def count(name: str) -> None:
-    """Add one launch of kernel ``name`` (inside :func:`recording` on this
-    thread, to its record instead)."""
+def _tally(key, n: int) -> None:
+    """Add ``n`` launches under ``key``: a kernel name, or a (name, CTAs
+    per pair) of :data:`clusters`.  The caller holds ``_count_lock``."""
+    if isinstance(key, tuple):
+        clusters[key] = clusters.get(key, 0) + n
+    else:
+        launches[key] += n
+
+
+def count(name: str, cluster: int = 0) -> None:
+    """Add one launch of kernel ``name``, and with ``cluster`` one in
+    :data:`clusters` at that many CTAs per pair (inside :func:`recording`
+    on this thread, to its record instead)."""
+    keys = (name, (name, cluster)) if cluster else (name,)
     record = getattr(_local, "record", None)
     if record is not None:
-        record[name] = record.get(name, 0) + 1
+        for key in keys:
+            record[key] = record.get(key, 0) + 1
         return
     with _count_lock:
-        launches[name] += 1
+        for key in keys:
+            _tally(key, 1)
 
 
 @contextlib.contextmanager
@@ -95,11 +117,12 @@ def recording():
 
 
 def add(counts, times: int) -> None:
-    """Add ``counts`` (kernel name -> launches) ``times`` times: the
-    launches of a graph's replays."""
+    """Add ``counts`` (a record of :func:`recording`: kernel name, or
+    (name, CTAs per pair), -> launches) ``times`` times: the launches of a
+    graph's replays."""
     with _count_lock:
-        for name, n in counts.items():
-            launches[name] += n * times
+        for key, n in counts.items():
+            _tally(key, n * times)
 
 
 def add_counted(counts, times) -> None:
@@ -216,6 +239,9 @@ def library() -> ctypes.CDLL:
         lib.lara_gotoh_dp.restype = i32
         lib.lara_gotoh_dp.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+        lib.lara_wave_clusters.restype = i32
+        lib.lara_wave_clusters.argtypes = [i32, i32, i32,
+                                           ctypes.POINTER(i32)]
         lib.lara_gotoh_tb.restype = i32
         lib.lara_gotoh_tb.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]

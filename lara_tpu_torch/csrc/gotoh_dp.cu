@@ -51,7 +51,10 @@
 //     warp polls, so that it never diverges around its shuffles: a warp
 //     whose lane 0 alone spun ran its steps 5x slower on the card.  Strip k
 //     runs on CTA k % C of the pair's cluster, warp (k / C) % nw; a warp
-//     takes strips k, k + C*nw, ... until la is covered;
+//     takes strips k, k + C*nw, ... until la is covered.  (Consecutive
+//     strips on one CTA, so that most handoffs stay in its shared memory,
+//     ran a lone 16S pair no faster on 16 CTAs and 12-18% slower on 4 to
+//     12: a CTA's strips then run at once and share its SM's schedulers.)
 //   * scores staged ahead: each lane copies its own score row into shared
 //     memory by cp.async, 32 columns at a time into a ring of three chunks,
 //     one chunk ahead of the sweep; no score load sits on the chain.
@@ -66,10 +69,17 @@
 //   * a short step: only the first 32 steps of a strip (and strip 0) test
 //     for row 0 and column 0, lane 31 writes the ring once per block of
 //     eight steps, and the ring is polled without branches;
-//   * filling the card: a cluster of C CTAs per pair (C from B and the SM
-//     count, in the wrapper: 4 at B=32 on 132 SMs), the ring written into
-//     distributed shared memory where producer and consumer sit on
-//     different CTAs.
+//   * filling the card: a cluster of C CTAs per pair, the ring written
+//     into distributed shared memory where producer and consumer sit on
+//     different CTAs.  The wrapper takes C from B and the card
+//     (gotoh_cuda.choose_cluster): at most 4 where B pairs fill the SMs (4
+//     at B=32 on 132 SMs, 1 at B=128), so that a pair's strips share few
+//     SMs; where B leaves SMs idle, up to 16 (kMaxCluster, non-portable on
+//     Hopper: one GPC), as long as the card seats all B clusters at once
+//     (cudaOccupancyMaxActiveClusters, lara_wave_clusters).  A step's
+//     time grows with the strip warps an SM runs at once: a lone 16S pair
+//     on 4 CTAs kept 12-13 strip warps an SM while 128 SMs sat idle; on 16
+//     CTAs of 4 warps it keeps one strip warp a scheduler.
 // Cells left of column 0 (j < 0) hold values that depend only on the
 // diagonal, never on the scores; they reach a valid cell only through the
 // M and H direction codes of the left border (i, 0).  The wrapper computes
@@ -161,6 +171,7 @@ constexpr int kTileCols = 96;
 constexpr int kRing = 88;
 constexpr int kSub = 8;  // steps between ring reads and checks
 constexpr int kMaxWarps = 16;
+constexpr int kMaxCluster = 16;  // CTAs per pair; above 8 non-portable
 constexpr int kWarpInts = 32 * kTileCols + 6 * kRing;
 
 // K2 window: kWinRows diagonals x 64 offsets, each diagonal's 64 bytes
@@ -809,29 +820,63 @@ size_t resident_bytes(int la_max, int lb_max, int nw) {
          sizeof(int);
 }
 
-// Opt one instance of dp_wave_kernel in to kMaxSmem of dynamic shared memory
-// on the current device, once.  The attribute is a ceiling, not a
-// reservation: each launch still asks for its own size, and launch_wave
-// refuses more than kMaxSmem.  Setting it to a launch's own size instead
-// would let a smaller launch fail a CUDA graph captured at a larger size.
+// Opt one instance of dp_wave_kernel in, on the current device, once: to
+// kMaxSmem of dynamic shared memory, and to clusters of more than 8 CTAs.
+// The shared memory attribute is a ceiling, not a reservation: each launch
+// still asks for its own size, and launch_wave refuses more than kMaxSmem.
+// Setting it to a launch's own size instead would let a smaller launch fail
+// a CUDA graph captured at a larger size.
 constexpr int kMaxDevices = 64;
 
 template <bool kPrefix, bool kSkewed, bool kResident>
-cudaError_t opt_in_smem() {
+cudaError_t opt_in() {
   static std::atomic<bool> done[kMaxDevices];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess || done[device % kMaxDevices].load()) return err;
-  err = cudaFuncSetAttribute(dp_wave_kernel<kPrefix, kSkewed, kResident>,
+  auto* kernel = dp_wave_kernel<kPrefix, kSkewed, kResident>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) done[device % kMaxDevices].store(true);
   return err;
 }
 
+// Warps per CTA of K1, K1-grid and K4's sweep at la_max rows in clusters of
+// ``cluster`` CTAs per lane, and the shared memory of such a CTA.
+int wave_warps(int la_max, int cluster) {
+  const int strips = (la_max + 32) / 32;
+  return std::min(kMaxWarps, (strips + cluster - 1) / cluster);
+}
+
+size_t wave_bytes(int nw) {
+  return (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
+}
+
+// A launch configuration of ``ctas`` CTAs of nw warps in clusters of
+// ``cluster``; ``attr`` holds its one attribute.
+cudaLaunchConfig_t wave_config(int ctas, int cluster, int nw, size_t smem,
+                               void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(32 * nw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // K1, K1-grid (kSkewed) or K4's sweep (kPrefix) over ``batch`` lanes in
-// clusters of ``cluster`` CTAs per lane, min(16, strips / cluster) warps
-// each; K-res (kResident) on one CTA of nw warps per pair.
+// clusters of ``cluster`` CTAs per lane, wave_warps each; K-res (kResident)
+// on one CTA of nw warps per pair.
 template <bool kPrefix, bool kSkewed, bool kResident = false>
 int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
                 const int* submat, const int* la, const int* lb,
@@ -839,35 +884,46 @@ int launch_wave(const int* pssm, const int* seq_a, const int* seq_b,
                 int go, int ge, int cluster, int vec16, void* out,
                 int* finals, void* stream, const int* seq = nullptr,
                 int nw = 0) {
-  const int strips = (la_max + 32) / 32;
-  if (!kResident) nw = std::min(kMaxWarps, (strips + cluster - 1) / cluster);
-  if (cluster < 1 || cluster > 8 || (kResident && cluster != 1) || nw < 1 ||
-      nw > kMaxWarps || !ring_safe(la_max, lb_max, cluster * nw))
+  if (!kResident && cluster >= 1) nw = wave_warps(la_max, cluster);
+  if (cluster < 1 || cluster > kMaxCluster || (kResident && cluster != 1) ||
+      nw < 1 || nw > kMaxWarps || !ring_safe(la_max, lb_max, cluster * nw))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      kResident ? resident_bytes(la_max, lb_max, nw)
-                : (static_cast<size_t>(nw) * kWarpInts + nw) * sizeof(int);
+  const size_t smem = kResident ? resident_bytes(la_max, lb_max, nw)
+                                : wave_bytes(nw);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = opt_in_smem<kPrefix, kSkewed, kResident>();
+  cudaError_t err = opt_in<kPrefix, kSkewed, kResident>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * cluster);
-  cfg.blockDim = dim3(32 * nw);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      wave_config(batch * cluster, cluster, nw, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, dp_wave_kernel<kPrefix, kSkewed, kResident>,
                            pssm, seq_a, seq_b, submat, la, lb, border, la_max,
                            lb_max, go, ge, nw, batch, vec16, out, finals, seq,
                            resident_pitch(lb_max));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of ``cluster`` CTAs of one instance at la_max rows the
+// current card holds at once (0 where it cannot seat one).
+template <bool kPrefix, bool kSkewed>
+int wave_clusters(int la_max, int cluster, int* count) {
+  *count = 0;
+  if (cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = opt_in<kPrefix, kSkewed, false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nw = wave_warps(la_max, cluster);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      wave_config(cluster, cluster, nw, wave_bytes(nw), nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(
+      count, dp_wave_kernel<kPrefix, kSkewed, false>, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // no later launch may report it
+    *count = 0;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -882,6 +938,21 @@ const char* lara_cuda_error_string(int err) {
 int lara_smem_optin(int device, int* bytes) {
   return static_cast<int>(cudaDeviceGetAttribute(
       bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}
+
+// The clusters of ``cluster`` CTAs that the current card holds at once for
+// K1 (kind 0), K1-grid (1) or K4's sweep (2) at la_max rows, into count.
+int lara_wave_clusters(int kind, int la_max, int cluster, int* count) {
+  switch (kind) {
+    case 0:
+      return wave_clusters<false, false>(la_max, cluster, count);
+    case 1:
+      return wave_clusters<false, true>(la_max, cluster, count);
+    case 2:
+      return wave_clusters<true, false>(la_max, cluster, count);
+  }
+  *count = 0;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int lara_gotoh_dp(const int* pssm, const int* la, const int* lb,

@@ -97,6 +97,13 @@ K2_WIN_BYTES = 80
 K2_SEG = 32
 
 
+#: CTAs per pair at most in one cluster: Hopper seats clusters of up to 16
+#: CTAs in one GPC once a kernel opts in (above 8 they are non-portable)
+MAX_CLUSTER = 16
+#: the instances of K1's kernel, as ``lara_wave_clusters`` names them
+K1, K1_GRID, K4_SWEEP = 0, 1, 2
+
+
 def ring_safe(la_max: int, lb_max: int, cluster: int) -> bool:
     """Whether K1's strip schedule always finishes at this shape on
     ``cluster`` CTAs per pair, each of min(16, strips / cluster) warps
@@ -107,19 +114,55 @@ def ring_safe(la_max: int, lb_max: int, cluster: int) -> bool:
         la_max, lb_max, cluster * min(gotoh_plan.K1_MAX_WARPS, -(-strips // cluster)))
 
 
-def cluster_size(b: int, la_max: int, lb_max: int,
-                 device: torch.device) -> int:
-    """K1's CTAs per pair: as many as fill the card's SMs, at most 4 (B=32
-    on 132 SMs: 4; B=128: 1), and more, up to 8, where fewer would let the
-    strip schedule stall (:func:`ring_safe`)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    cluster = max(1, min(4, sms // max(1, b)))
+def choose_cluster(b: int, sms: int, resident, la_max: int,
+                   lb_max: int) -> int:
+    """K1's CTAs per pair for ``b`` pairs of ``la_max`` x ``lb_max`` on a
+    card of ``sms`` SMs, where ``resident(c)`` is how many clusters of
+    ``c`` CTAs the card holds at once.
+
+    As many as fill the SMs, at most 4 (B=32 on 132 SMs: 4; B=128: 1),
+    and more, up to 8, where fewer would let the strip schedule stall
+    (:func:`ring_safe`).  Where ``b`` pairs leave SMs idle even so, a
+    pair spreads its strips over up to :data:`MAX_CLUSTER` CTAs, one
+    strip at least each (B=1 or 2 at 1536 rows: 16), taking the largest
+    size at which the card seats all ``b`` clusters at once and the
+    schedule finishes; a size the card cannot seat ``b`` times would run
+    some pairs' clusters after others'."""
+    strips = (la_max + 32) // 32
+    fill = max(1, sms // max(1, b))
+    cluster = min(4, fill)
+    for spread in range(min(MAX_CLUSTER, fill, strips), cluster, -1):
+        if ring_safe(la_max, lb_max, spread) and resident(spread) >= b:
+            return spread
     while not ring_safe(la_max, lb_max, cluster):
         if cluster == 8:
             raise ValueError(f"K1 cannot run {la_max}x{lb_max} on 8 CTAs "
                              "per pair")
         cluster += 1
     return cluster
+
+
+@functools.lru_cache(maxsize=None)
+def _card_clusters(index: int, kind: int, la_max: int, cluster: int) -> int:
+    value = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_build.library().lara_wave_clusters(
+            kind, la_max, cluster, ctypes.byref(value)), "wave_clusters")
+    return value.value
+
+
+def cluster_size(b: int, la_max: int, lb_max: int, device: torch.device,
+                 kind: int = K1) -> int:
+    """:func:`choose_cluster` on ``device`` for the instance ``kind`` (K1,
+    K1_GRID or K4_SWEEP) of K1's kernel: its SM count, and the clusters it
+    holds at once by ``cudaOccupancyMaxActiveClusters``, asked once per
+    (instance, rows, size)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return choose_cluster(
+        b, sms, lambda c: _card_clusters(index, kind, la_max, c), la_max,
+        lb_max)
 
 
 def dp_forward(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
@@ -144,7 +187,7 @@ def dp_forward(pssm: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
         la_max, lb_max, int(go), int(ge), cluster, dirs.data_ptr(),
         finals.data_ptr(), _build.stream_of(pssm))
     _build.check(rc, "gotoh_dp")
-    _build.count("gotoh_dp")
+    _build.count("gotoh_dp", cluster)
     return dirs, finals
 
 
@@ -211,13 +254,14 @@ def dp_forward_grid(skewed: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
     border = _border_on(int(go), int(ge), width, dev)
     dirs = torch.empty((num_rows, b, width), dtype=torch.int8, device=dev)
     finals = torch.empty((3, b), dtype=I32, device=dev)
-    cluster = cluster or cluster_size(b, width - 1, num_diag - width, dev)
+    cluster = cluster or cluster_size(b, width - 1, num_diag - width, dev,
+                                      K1_GRID)
     rc = _build.library().lara_gotoh_grid_dp(
         skewed.data_ptr(), la.data_ptr(), lb.data_ptr(), border.data_ptr(), b,
         num_diag, width, int(go), int(ge), cluster, dirs.data_ptr(),
         finals.data_ptr(), _build.stream_of(skewed))
     _build.check(rc, "gotoh_grid_dp")
-    _build.count("gotoh_grid_dp")
+    _build.count("gotoh_grid_dp", cluster)
     return dirs, finals
 
 
@@ -318,13 +362,13 @@ def edge_sweep(seq_a: torch.Tensor, seq_b: torch.Tensor, la: torch.Tensor,
     prefix = torch.empty((2 * b, la_max + lb_max + 1, la_max + 1),
                          dtype=I32, device=dev)
     finals = torch.empty((3, 2 * b), dtype=I32, device=dev)
-    cluster = cluster or cluster_size(2 * b, la_max, lb_max, dev)
+    cluster = cluster or cluster_size(2 * b, la_max, lb_max, dev, K4_SWEEP)
     rc = _build.library().lara_edge_sweep(
         seq_a.data_ptr(), seq_b.data_ptr(), submat.data_ptr(), la.data_ptr(),
         lb.data_ptr(), b, la_max, lb_max, int(go), int(ge), cluster,
         prefix.data_ptr(), finals.data_ptr(), _build.stream_of(seq_a))
     _build.check(rc, "edge_sweep")
-    _build.count("edge_sweep")
+    _build.count("edge_sweep", cluster)
     return prefix, finals
 
 

@@ -207,13 +207,15 @@ def test_dp_kernels_match_plain(case, cuda):
         _int_equal(got, want, field)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("case", [(2, 1100, 40, 9), (5, 300, 77, 11),
                                   (3, 45, 700, 21), (6, 64, 64, 25)])
 def test_dp_kernel_cluster_sizes_match_plain(case, cluster, cuda):
-    """K1 with 1, 2 and 4 CTAs per pair (at one CTA, 1100 rows are 35
-    strips on 16 warps, so warps take several strips; at 2 and 4 the rings
-    between strips cross CTAs through distributed shared memory)."""
+    """K1 with 1, 2, 4, 8 and 16 CTAs per pair (at one CTA, 1100 rows are
+    35 strips on 16 warps, so warps take several strips; from 2 on the
+    rings between strips cross CTAs through distributed shared memory; 16,
+    above the portable 8, needs the kernel's opt-in, and leaves CTAs with
+    no strip where a pair has fewer than 16)."""
     _b, la_max, lb_max, _seed = case
     pssm_t, _seq_t, la_t, lb_t = _dp_problem(case, cuda)
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE,
@@ -230,7 +232,8 @@ def test_dp_kernel_refuses_a_stalling_schedule(cuda):
     """600 rows are 19 strips, more than one CTA's 16 warps, and rows of
     1800 cells would stall the strip schedule there (``ring_safe``): an
     explicit cluster of 1 raises before any launch, and the wrapper's own
-    choice (4 CTAs, one strip per warp) runs and is exact."""
+    choice (two pairs leave the SMs idle: 16 CTAs, one strip per warp)
+    runs and is exact."""
     case = (2, 600, 1800, 31)
     _b, la_max, lb_max, _seed = case
     pssm_t, _seq_t, la_t, lb_t = _dp_problem(case, cuda)
@@ -239,7 +242,7 @@ def test_dp_kernel_refuses_a_stalling_schedule(cuda):
     with pytest.raises(_build.KernelLaunchError):
         gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE, cluster=1)
     assert _build.launches["gotoh_dp"] == before
-    assert gotoh_cuda.cluster_size(2, la_max, lb_max, cuda) == 4
+    assert gotoh_cuda.cluster_size(2, la_max, lb_max, cuda) == 16
     dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE)
     dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
     torch.cuda.synchronize()
@@ -322,13 +325,13 @@ def test_grid_kernels_at_16s_bucket(cuda):
     _hold_grid((32, 1536, 1536, 19), 32, cuda)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("case", [(2, 1100, 40, 9), (5, 300, 77, 11),
                                   (3, 45, 700, 21), (6, 64, 64, 25)])
 def test_grid_kernel_cluster_sizes_match_plain(case, cluster, cuda):
-    """K1-grid with 1, 2 and 4 CTAs per pair (at one CTA, 1100 rows are 35
-    strips on 16 warps; at 2 and 4 the rings between strips cross CTAs
-    through distributed shared memory)."""
+    """K1-grid with 1, 2, 4, 8 and 16 CTAs per pair (at one CTA, 1100 rows
+    are 35 strips on 16 warps; from 2 on the rings between strips cross
+    CTAs through distributed shared memory)."""
     _hold_grid(case, 8, cuda, cluster=cluster)
 
 
@@ -337,7 +340,7 @@ def test_grid_kernel_refuses_a_stalling_schedule(cuda):
     stalling shape of ``test_dp_kernel_refuses_a_stalling_schedule`` on one
     CTA per pair), ``dp_forward_grid`` raises before any launch, with no
     fallback; two CTAs per pair, the fewest that run it, and the wrapper's
-    own cluster (4) are exact."""
+    own cluster (16) are exact."""
     case = (2, 600, 1800, 31)
     pssm_t, _seq_t, la_t, lb_t = _dp_problem(case, cuda)
     skewed = gotoh.skew_scores(pssm_t, int(PSSM_INIT))
@@ -638,9 +641,9 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 def test_dp_kernels_at_16s_bucket(cuda):
     """K1 + K2 at the 16S bucket, B=2 1536 x 1536: K1 runs 49 strips on
-    four CTAs per pair (13 warps and about 180 KB of opt-in shared memory
-    each), and K2 walks up to 3072 steps per pair through about 100
-    windows."""
+    the wrapper's CTAs per pair (16 of 4 warps where the card seats two
+    such clusters at once), and K2 walks up to 3072 steps per pair through
+    about 100 windows."""
     case = (2, 1536, 1536, 17)
     _b, la_max, lb_max, _seed = case
     pssm_t, seq_t, la_t, lb_t = _dp_problem(case, cuda)
@@ -658,6 +661,85 @@ def test_dp_kernels_at_16s_bucket(cuda):
                "dirs")
     for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
         _int_equal(got, want, field)
+
+
+def _lengths_problem(la, lb, la_max, lb_max, seed, dev):
+    """:func:`_dp_problem`'s scores and seq scores with the lane lengths
+    ``la`` and ``lb`` given."""
+    pssm_t, seq_t, _la, _lb = _dp_problem((len(la), la_max, lb_max, seed),
+                                          dev)
+    return pssm_t, seq_t, torch.tensor(la, dtype=torch.int32, device=dev), \
+        torch.tensor(lb, dtype=torch.int32, device=dev)
+
+
+def _hold_k1_k2(pssm_t, seq_t, la_t, lb_t, dev, cluster=0):
+    """K1 (at ``cluster`` CTAs per pair, 0: the wrapper's choice) and K2
+    after it against the plain forward and traceback: the codes on every
+    valid cell, the finals and every traceback field.  Returns the CTAs
+    per pair K1 launched on, from ``_build.clusters``."""
+    _b, la_max, lb_max = pssm_t.shape
+    before = dict(_build.clusters)
+    dirs_k, finals_k = gotoh_cuda.dp_forward(pssm_t, la_t, lb_t, GO, GE,
+                                             cluster=cluster)
+    tb_k = gotoh_cuda.dp_traceback(dirs_k, finals_k, la_t, lb_t, GO, GE, seq_t)
+    moved = {key: n - before.get(key, 0)
+             for key, n in _build.clusters.items()
+             if n != before.get(key, 0)}
+    assert len(moved) == 1 and list(moved.values()) == [1], moved
+    ((name, ctas),) = moved
+    assert name == "gotoh_dp"
+    dirs_p, finals_p = gotoh.dp_forward(pssm_t, la_t, lb_t, GO, GE)
+    tb_p = gotoh.dp_traceback(dirs_p, finals_p, la_t, lb_t, GO, GE, seq_t)
+    torch.cuda.synchronize()
+    _int_equal(finals_k, finals_p, "finals")
+    valid = _valid_cells(la_t, lb_t, la_max, lb_max, dev)
+    _int_equal(torch.where(valid, dirs_k, 0), torch.where(valid, dirs_p, 0),
+               "dirs")
+    for field, got, want in zip(gotoh.Traceback._fields, tb_k, tb_p):
+        _int_equal(got, want, field)
+    return ctas
+
+
+@pytest.mark.parametrize("la,lb", [((1536,), (1536,)),
+                                   ((1530, 1201), (1477, 1536))])
+def test_dp_kernels_spread_match_plain(la, lb, cuda):
+    """A lone 1536 x 1536 pair and a ragged pair of two, where the batch
+    leaves the SMs idle: the wrapper spreads each pair's 49 strips over
+    more than 4 CTAs (16 where the card seats the clusters), and K1's
+    codes and finals and K2's walk over them equal the plain versions."""
+    pssm_t, seq_t, la_t, lb_t = _lengths_problem(la, lb, 1536, 1536, 53,
+                                                 cuda)
+    chosen = gotoh_cuda.cluster_size(len(la), 1536, 1536, cuda)
+    assert chosen > 4
+    assert _hold_k1_k2(pssm_t, seq_t, la_t, lb_t, cuda) == chosen
+
+
+def test_dp_kernels_step_down_where_clusters_cannot_be_seated(
+        cuda, monkeypatch):
+    """Where the card cannot seat B clusters of 16 at once, the chooser
+    takes the largest size it can seat, and K1 stays exact there.  Eight
+    pairs of 1536 rows would take 16 CTAs each on 132 SMs; the card's own
+    count of seatable clusters is used where it is below 8 at 16 CTAs,
+    else a count of 7 above 8 CTAs stands in for a card with fewer or
+    smaller GPCs."""
+    b = 8
+    seated = gotoh_cuda._card_clusters(0, gotoh_cuda.K1, 1536, 16)
+    if seated >= b:
+        card = gotoh_cuda._card_clusters
+        monkeypatch.setattr(
+            gotoh_cuda, "_card_clusters",
+            lambda index, kind, la_max, c: min(card(index, kind, la_max, c),
+                                               7 if c > 8 else b))
+    chosen = gotoh_cuda.cluster_size(b, 1536, 1536, cuda)
+    assert 4 <= chosen < 16
+    assert gotoh_cuda._card_clusters(0, gotoh_cuda.K1, 1536, chosen) >= b
+    for c in range(chosen + 1, 17):
+        assert gotoh_cuda._card_clusters(0, gotoh_cuda.K1, 1536, c) < b
+    pssm_t, seq_t, la_t, lb_t = _lengths_problem(
+        (1536, 1500, 1200, 1536, 777, 1536, 1400, 1),
+        (1536, 1536, 1301, 1000, 1536, 901, 1536, 1536), 1536, 1536, 59,
+        cuda)
+    assert _hold_k1_k2(pssm_t, seq_t, la_t, lb_t, cuda) == chosen
 
 
 def _edge_problem(b, la_max, lb_max, seed, dev):
@@ -692,6 +774,27 @@ def _edge_problem(b, la_max, lb_max, seed, dev):
 EDGE_CASES = [(128, 96, 96, 41), (40, 333, 700, 43), (1, 1, 1, 45),
               (1, 1536, 1536, 47), (32, 320, 320, 42), (32, 1536, 1536, 46),
               (5, 45, 23, 48)]
+
+
+def test_edge_sweep_spreads_a_lone_pair(cuda):
+    """K4's sweep of a lone 16S pair runs 2 lanes, which leave the SMs
+    idle: the wrapper spreads each lane over more than 4 CTAs, as K1's,
+    and the prefixes on every valid cell and the finals equal the plain
+    sweep's."""
+    inputs, (go, ge, _subopt) = _edge_problem(1, 1536, 1536, 61, cuda)
+    chosen = gotoh_cuda.cluster_size(2, 1536, 1536, cuda,
+                                     gotoh_cuda.K4_SWEEP)
+    assert chosen > 4
+    before = _build.clusters.get(("edge_sweep", chosen), 0)
+    prefix_k, finals_k = gotoh_cuda.edge_sweep(*inputs, go, ge)
+    assert _build.clusters[("edge_sweep", chosen)] == before + 1
+    prefix_p, finals_p = gotoh.edge_sweep(*inputs, go, ge)
+    torch.cuda.synchronize()
+    _int_equal(finals_k, finals_p, "finals")
+    la2, lb2 = (torch.cat([x, x]) for x in inputs[2:4])
+    valid = _valid_cells(la2, lb2, 1536, 1536, cuda)
+    _int_equal(torch.where(valid, prefix_k, 0),
+               torch.where(valid, prefix_p, 0), "prefix")
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)

@@ -208,13 +208,66 @@ def test_k1_constants_match_the_source():
                                gotoh_plan.K1_SUB)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
+def _never_asked(cluster):
+    raise AssertionError(f"asked for clusters of {cluster}")
+
+
+def _seats(limit_above_8, limit=132):
+    """Clusters a card seats at once: ``limit`` up to 8 CTAs, else
+    ``limit_above_8``."""
+    return lambda c: limit if c <= 8 else limit_above_8
+
+
+# (b, SMs, clusters seated, la_max, lb_max, CTAs per pair): the 16S chunk,
+# its K4 sweep (56 and 64 lanes) and the tRNA chunk and sweep keep 4, 2, 1
+# and 1 without asking what the card seats; a lone 16S pair and its sweep
+# (2 lanes) spread to 16, on an H100 PCIe's 114 SMs too, where B=32 takes
+# 3 and B=8 14; where the card seats fewer clusters than B at a size, the
+# next size down; pairs of 3 or 4 strips keep the 4 of a full card; the
+# stalling 600 x 1800 steps up from 1 CTA as before, and spreads at B=2
+CHOOSER = [
+    (1, 132, _seats(1), 1536, 1536, 16),
+    (2, 132, _seats(2), 1536, 1536, 16),
+    (32, 132, _never_asked, 1536, 1536, 4),
+    (56, 132, _never_asked, 1536, 1536, 2),
+    (64, 132, _never_asked, 1536, 1536, 2),
+    (128, 132, _never_asked, 96, 96, 1),
+    (256, 132, _never_asked, 96, 96, 1),
+    (1, 114, _seats(1), 1536, 1536, 16),
+    (32, 114, _never_asked, 1536, 1536, 3),
+    (8, 114, _seats(8), 1536, 1536, 14),
+    (8, 132, _seats(7), 1536, 1536, 8),
+    (8, 132, _seats(7, 7), 1536, 1536, 4),
+    (1, 132, _seats(0), 1536, 1536, 8),
+    (4, 132, lambda c: 4 if c <= 12 else 3, 1536, 1536, 12),
+    (1, 132, _never_asked, 96, 96, 4),
+    (1, 132, _never_asked, 64, 64, 4),
+    (2, 132, _seats(2), 600, 1800, 16),
+    (40, 132, _never_asked, 600, 1800, 3),
+    (128, 132, _never_asked, 600, 1800, 2),
+]
+
+
+@pytest.mark.parametrize("b,sms,resident,la_max,lb_max,want", CHOOSER)
+def test_k1_cluster_choice(b, sms, resident, la_max, lb_max, want):
+    """K1's CTAs per pair as a function of the batch, the card's SMs and
+    the clusters it seats at once: what fills the card up to 4, spread up
+    to 16 only where the batch leaves SMs idle and the card seats every
+    pair's cluster at once, and a schedule that finishes."""
+    got = gotoh_cuda.choose_cluster(b, sms, resident, la_max, lb_max)
+    assert got == want
+    assert gotoh_cuda.ring_safe(la_max, lb_max, got)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 def test_k1_ring_safe_shapes_finish(cluster):
     """Every shape that ``ring_safe`` admits (and the launcher then runs)
     finishes in the model of K1's strip schedule, up to the longest row it
     admits; with more strips than warps, a row 4 cells per warp past that
     still finishes, and 8 more stall the model: the hang the launcher
-    refuses."""
+    refuses.  Up to 2900 rows have more strips than warps on up to 4 CTAs
+    per pair; on 8 and 16 every strip has a warp of its own, so no row
+    length stalls."""
     stalls = multi = 0
     for la in (90, 600, 1100, 1536, 2100, 2900):
         strips = (la + 32) // 32
@@ -229,4 +282,5 @@ def test_k1_ring_safe_shapes_finish(cluster):
             assert _strip_schedule_finishes(la, longest + 4 * p, cluster)
             stalls += not _strip_schedule_finishes(la, longest + 4 * p + 8,
                                                    cluster)
-    assert stalls == multi > 0
+    assert stalls == multi
+    assert (multi > 0) == (cluster <= 4)
